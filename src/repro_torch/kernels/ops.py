@@ -1,0 +1,25 @@
+"""Public wrapper around the DAISM GEMM kernel (device dispatch)."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.config import DaismConfig
+
+from . import daism_matmul as _dm
+
+
+def daism_matmul_pallas(a: torch.Tensor, w: torch.Tensor,
+                        cfg: DaismConfig) -> torch.Tensor:
+    """(M, K) @ (K, N) bf16 -> (M, N) f32 under ``cfg.variant``.
+
+    The operands' device picks the implementation: CUDA tensors launch the
+    CUDA kernel (which masks ragged edges itself, so nothing is padded) and
+    CPU tensors take its plain version. There is no fallback between them;
+    both raise ``ValueError`` on non-bf16 operands.
+    """
+    if a.device.type == "cuda":
+        return _dm.daism_matmul_kernel(a, w, cfg.variant)
+    if a.device.type == "cpu" and w.device.type == "cpu":
+        return _dm.daism_matmul_plain(a, w, cfg.variant)
+    raise ValueError(f"daism_matmul_pallas: unsupported devices {a.device} / "
+                     f"{w.device}")

@@ -1,0 +1,178 @@
+"""Serving launcher: thin CLI over the paged continuous-batching engine.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama_1_1b
+
+Builds the model at its published width on the card (``--device cuda``, the
+default) with random weights from ``--seed``, submits a synthetic workload
+(fixed stagger or Poisson arrivals) and drives
+``repro_torch.serve.ServeEngine``. Prints the per-request timeline and the
+engine's latency / throughput / KV-utilization report. ``--smoke`` serves
+the reduced smoke config (small enough for the CPU with ``--device cpu``);
+``--layers N`` cuts the depth and never the width.
+
+The flags are the JAX launcher's (``repro.launch.serve``) for what is
+ported; ``--preempt``, ``--spec-k`` and ``--shards`` are accepted and refused
+by the engine until those features are ported.
+"""
+import argparse
+import dataclasses
+import warnings
+
+
+def build_daism(variant: str, backend: str):
+    from repro_torch.core import Backend, DaismConfig, Variant
+    return DaismConfig(variant=Variant(variant), backend=Backend(backend))
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--arch", required=True)
+    p.add_argument("--smoke", action="store_true",
+                   help="reduced config + small workload (CPU-friendly)")
+    p.add_argument("--device", default="cuda",
+                   help="where the model and the KV pool live (cuda | cpu)")
+    p.add_argument("--layers", type=int, default=0,
+                   help="depth override (0 = the config's); width is kept")
+    p.add_argument("--requests", type=int, default=6)
+    p.add_argument("--slots", type=int, default=2,
+                   help="decode batch width per policy group")
+    p.add_argument("--max-seq", type=int, default=64,
+                   help="per-request KV capacity (prompt + generation)")
+    p.add_argument("--block-size", type=int, default=16,
+                   help="KV page size in tokens")
+    p.add_argument("--blocks", type=int, default=0,
+                   help="physical KV pages (0 = slots*max_seq/block_size)")
+    p.add_argument("--prefill-chunk", type=int, default=16,
+                   help="prompt tokens ingested per engine tick "
+                        "(chunked prefill; power of two)")
+    p.add_argument("--prompt-len", type=int, default=8,
+                   help="base prompt length (workload staggers around it)")
+    p.add_argument("--gen", type=int, default=8,
+                   help="base generation length")
+    p.add_argument("--arrival-every", type=int, default=0,
+                   help="space arrivals N engine steps apart (0 = all at once)")
+    p.add_argument("--poisson", type=float, default=0.0,
+                   help="Poisson arrival rate in requests/step (overrides "
+                        "--arrival-every; 0 = disabled)")
+    p.add_argument("--policy", default="",
+                   help="engine-wide per-site approximation policy spec, "
+                        "e.g. '*/attn/*=exact,*=pc3_tr:pallas'")
+    p.add_argument("--tiers", default="",
+                   help="named per-request policy tiers, e.g. "
+                        "'free=*=pc3_tr:pallas;paid=*/attn/*=exact,"
+                        "*=pc3_tr:pallas' — the workload is spread across "
+                        "them")
+    p.add_argument("--variant", default="exact",
+                   help="DEPRECATED (use --policy): uniform multiplier "
+                        "variant (exact | fla | ... | pc3_tr)")
+    p.add_argument("--backend", default="jnp",
+                   help="daism backend for approximate variants")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--shards", type=int, default=1,
+                   help="tensor-parallel serving (not ported yet)")
+    p.add_argument("--preempt", action="store_true",
+                   help="preemption/swap (not ported yet)")
+    p.add_argument("--swap-blocks", type=int, default=0)
+    p.add_argument("--spec-draft", default="",
+                   help="speculative decoding draft policy (not ported yet)")
+    p.add_argument("--spec-k", type=int, default=0)
+    p.add_argument("--sync", action="store_true",
+                   help="synchronous tick loop (disable the async "
+                        "host/device overlap)")
+    args = p.parse_args(argv)
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import (EngineConfig, ServeEngine, parse_tiers,
+                                   poisson_requests, synthetic_requests)
+
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = cfg.smoke(window=0)  # paged pools need non-ring caches
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    if args.policy:
+        cfg = cfg.with_policy(args.policy)
+    elif args.variant != "exact":
+        warnings.warn("--variant/--backend are deprecated; use --policy "
+                      f"'*={args.variant}:{args.backend}'", DeprecationWarning,
+                      stacklevel=1)
+        cfg = dataclasses.replace(cfg,
+                                  daism=build_daism(args.variant, args.backend))
+    tiers = parse_tiers(args.tiers) if args.tiers else ()
+    engine_cfg = EngineConfig(
+        num_slots=args.slots, max_seq=args.max_seq,
+        block_size=args.block_size, num_blocks=args.blocks,
+        prefill_chunk=args.prefill_chunk, tiers=tiers,
+        shards=args.shards, preempt=args.preempt,
+        swap_blocks=args.swap_blocks, overlap=not args.sync,
+        spec_draft=args.spec_draft, spec_k=args.spec_k)
+    engine_cfg.check_ported()
+    model = build_model(cfg, device=args.device)
+    with torch.inference_mode():
+        params = model.init(args.seed)
+    engine = ServeEngine(model, params, engine_cfg, device=args.device)
+    tier_names = [name for name, _ in tiers]
+    if args.poisson > 0:
+        requests = poisson_requests(
+            args.requests, cfg.vocab, rate=args.poisson,
+            base_prompt=args.prompt_len, base_gen=args.gen, seed=args.seed,
+            tiers=tier_names)
+    else:
+        requests = synthetic_requests(
+            args.requests, cfg.vocab, base_prompt=args.prompt_len,
+            base_gen=args.gen, seed=args.seed,
+            arrival_every=args.arrival_every, tiers=tier_names)
+    report = engine.run(requests)
+
+    numerics = (f"tiers {args.tiers}" if args.tiers
+                else f"policy {args.policy}" if args.policy else args.variant)
+    arrivals = (f"poisson rate {args.poisson}" if args.poisson > 0
+                else f"every {args.arrival_every}" if args.arrival_every
+                else "all at once")
+    print(f"== {args.arch} on {engine.device} ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}; {numerics}) — {args.requests} requests, "
+          f"{args.slots} rows/group, {engine.cfg.blocks} x "
+          f"{args.block_size}-token KV pages, arrivals {arrivals} ==")
+    for ev in report.events:
+        if ev["event"] == "admit":
+            joined = " (joined running batch)" if ev["joined_running"] else ""
+            cached = (f", {ev['cached_blocks']} cached"
+                      if ev.get("cached_blocks") else "")
+            print(f"step {ev['step']:4d}  admit  req {ev['request_id']} "
+                  f"-> {ev['group']}/row {ev['slot']} "
+                  f"[{ev['blocks']} pages{cached}]{joined}")
+        else:
+            print(f"step {ev['step']:4d}  retire req {ev['request_id']} "
+                  f"({ev['group']}/row {ev['slot']} freed, {ev['reason']})")
+    print(report.summary())
+    if report.completed:
+        sample = report.completed[0]
+        print(f"sample (req {sample.request_id}): {sample.output}")
+    default_workload = all(
+        getattr(args, k) == p.get_default(k)
+        for k in ("requests", "slots", "gen", "prompt_len", "arrival_every",
+                  "poisson", "block_size", "blocks", "prefill_chunk"))
+    if args.smoke and default_workload:
+        # the gate is calibrated to the default smoke workload (staggered
+        # lengths oversubscribing 2 rows)
+        if report.joined_mid_stream < 2:  # explicit: survives python -O
+            raise SystemExit(
+                "smoke workload must exercise continuous batching "
+                f"(got {report.joined_mid_stream} mid-stream joins)")
+        print("SMOKE-OK: continuous batching exercised "
+              f"({report.joined_mid_stream} mid-stream joins)")
+    if args.smoke and args.tiers and report.policy_groups < 2:
+        raise SystemExit(
+            "smoke --tiers workload must exercise >= 2 policy groups "
+            f"(got {report.policy_groups})")
+    if args.smoke and args.tiers:
+        print(f"SMOKE-OK: {report.policy_groups} policy groups served "
+              "mixed-tier traffic")
+    return report
+
+
+if __name__ == "__main__":
+    main()

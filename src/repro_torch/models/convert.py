@@ -1,0 +1,55 @@
+"""Carry a JAX package parameter tree across to the port.
+
+``jax.random`` draws cannot be reproduced in torch, so parity tests make the
+weights once with the reference and load them here. The input is the JAX
+param pytree with numpy leaves (``jax.tree.map(np.asarray, params)``); the
+key paths are identical in both packages, including the stacked ``blocks``
+layer axis.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.core.config import torch_dtype
+
+from .common import ArchConfig
+from .module import Params, flatten, unflatten
+from .transformer import DecoderLM
+
+
+def _to_tensor(arr, dtype: torch.dtype, device) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes bfloat16: move the bits
+        t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr, copy=True))
+    if t.dtype != dtype:
+        raise ValueError(f"dtype {t.dtype} where the port expects {dtype}")
+    return t.to(device)
+
+
+def params_from_jax(np_tree: Dict[str, Any], cfg: ArchConfig,
+                    device="cuda") -> Params:
+    """The port's parameters for ``cfg`` from the JAX package's tree.
+
+    Raises if the paths, shapes or dtypes differ from what the port's
+    :class:`~repro_torch.models.transformer.DecoderLM` declares.
+    """
+    model = DecoderLM(cfg, device=device)
+    specs = model.param_specs()
+    flat = flatten(np_tree)
+    if set(flat) != set(specs):
+        raise ValueError(
+            f"param paths differ: only in JAX {sorted(set(flat) - set(specs))}, "
+            f"only in the port {sorted(set(specs) - set(flat))}")
+    loaded = {}
+    for path, (shape, dtype, _) in specs.items():
+        arr = flat[path]
+        if tuple(arr.shape) != tuple(shape):
+            raise ValueError(f"{path}: shape {tuple(arr.shape)}, port "
+                             f"expects {tuple(shape)}")
+        loaded[path] = _to_tensor(arr, torch_dtype(dtype), model.device)
+    return unflatten(loaded)

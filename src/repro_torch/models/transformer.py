@@ -1,0 +1,251 @@
+"""Decoder-only transformer (dense): ``forward`` and paged serving steps.
+
+Parameters are the JAX package's tree: stacked ``blocks`` tensors with a
+leading layer axis. The reference consumes the stack with one ``lax.scan``
+per policy segment; here each segment is a Python loop over its layers,
+run under the site scope ``layer_{lo}`` of its first layer, so per-depth
+rules resolve exactly as they do in the reference.
+
+Ported: ``init``, ``forward``, ``init_paged_cache``, ``paged_step``.
+Not yet: ``paged_verify_step``, ``init_cache``/``decode_step``/``prefill``,
+MoE, VLM cross blocks and ``EncDecLM``.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.core.config import torch_dtype
+from repro_torch.policy import OpKind, plan_segments, site_scope
+from repro_torch.runtime.device import resolve_device
+
+from .common import ArchConfig
+from .layers import embed, mlp, norm, self_attention, unembed
+from .module import (Ctx, init_params, layer_slice, lecun_init, normal_init,
+                     ones_init, zeros_init)
+
+Params = Dict[str, Any]
+
+
+# ---------------------------------------------------------------------------
+# Op-site probes (policy segmentation)
+# ---------------------------------------------------------------------------
+
+def mlp_sites(cfg: ArchConfig, base: str):
+    """(path, kind) probe sites of one dense MLP under ``base``."""
+    names = ("wi", "wg", "wo") if cfg.act in ("swiglu", "geglu") else \
+        ("wi", "wo")
+    return [(f"{base}/{n}", OpKind.DENSE) for n in names]
+
+
+def attn_sites(base: str):
+    sites = [(f"{base}/{n}", OpKind.DENSE) for n in ("wq", "wk", "wv", "wo")]
+    # the dynamic qk^T/att@v contraction pair resolves as one ATTN_QK site
+    sites.append((f"{base}/kernel", OpKind.ATTN_QK))
+    return sites
+
+
+def decoder_block_sites(cfg: ArchConfig, i: int, prefix: str = "decoder"):
+    """Every contraction site of decoder layer ``i``: the paths the block
+    produces (Ctx scopes + dense leaf names)."""
+    base = f"{prefix}/layer_{i}"
+    return attn_sites(f"{base}/attn") + mlp_sites(cfg, f"{base}/ffn")
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+def decoder_block(ctx: Ctx, cfg: ArchConfig, x, *, positions, cache=None,
+                  causal=True):
+    """Pre-norm self-attention + dense FFN. Returns (x, cache)."""
+    use_bias = cfg.norm == "layernorm"  # starcoder2/whisper-style
+    with ctx.scope("attn"):
+        h, new_cache = self_attention(
+            ctx, norm(ctx, "ln1", x, cfg), cfg, positions=positions,
+            cache=cache, causal=causal, use_bias=use_bias)
+    x = x + h
+    with ctx.scope("ffn"):
+        x = x + mlp(ctx, norm(ctx, "ln2", x, cfg), cfg, use_bias=use_bias)
+    return x, new_cache
+
+
+def run_policy_segments(layer_fn, stacked_params: Params, x, *, segments,
+                        cache: Optional[Params] = None,
+                        prefix: str = "layer"):
+    """Run ``x`` through the layer stack, segment by segment.
+
+    ``segments`` are (lo, hi) layer ranges (plan_segments). Each segment runs
+    under the site scope ``{prefix}_{lo}`` — per-depth rules resolve against
+    its first layer, as in the reference's segmented scans — with one
+    ``layer_fn(ctx, x, cache)`` call per layer on that layer's row of the
+    stacked params (and of the stacked cache, whose rows are views, so
+    in-place updates land in the caller's cache).
+    """
+    for lo, hi in segments:
+        with site_scope(f"{prefix}_{lo}", repeat=hi - lo):
+            for i in range(lo, hi):
+                c = None if cache is None else layer_slice(cache, i)
+                x, _ = layer_fn(Ctx(layer_slice(stacked_params, i)), x, c)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Decoder-only LM (dense)
+# ---------------------------------------------------------------------------
+
+class DecoderLM:
+    """Dense decoder LM: ``init``, ``forward`` and the paged serving step.
+
+    ``device`` is where :meth:`init` and :meth:`init_paged_cache` allocate;
+    it defaults to the card.
+    """
+
+    def __init__(self, cfg: ArchConfig, device="cuda"):
+        if cfg.n_experts or cfg.cross_every or cfg.family not in ("dense",):
+            raise NotImplementedError(
+                f"{cfg.name}: only dense decoder LMs are ported yet "
+                f"(family={cfg.family!r}, n_experts={cfg.n_experts}, "
+                f"cross_every={cfg.cross_every})")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        # maximal layer runs with identical resolved numerics
+        self.segments = plan_segments(
+            cfg.approx_policy,
+            functools.partial(decoder_block_sites, cfg), 0, cfg.n_layers)
+
+    # -- init ------------------------------------------------------------
+    def param_specs(self) -> Dict[str, tuple]:
+        """``{path: (shape, dtype, init)}`` of every parameter, with the JAX
+        package's key paths and shapes."""
+        cfg = self.cfg
+        d, L, pd = cfg.d_model, cfg.n_layers, cfg.param_dtype
+        specs: Dict[str, tuple] = {
+            "embedding": ((cfg.vocab, d), pd, normal_init(1.0)),
+            "final_ln_scale": ((d,), "float32", ones_init()),
+        }
+        if cfg.norm == "layernorm":
+            specs["final_ln_bias"] = ((d,), "float32", zeros_init())
+        if not cfg.tie_embeddings:
+            specs["lm_head"] = ((d, cfg.vocab), pd, lecun_init())
+        use_bias = cfg.norm == "layernorm"
+        gated = cfg.act in ("swiglu", "geglu")
+
+        def block(scope, ln, mats):
+            specs[f"blocks/{scope}/{ln}_scale"] = ((L, d), "float32",
+                                                    ones_init())
+            if cfg.norm == "layernorm":
+                specs[f"blocks/{scope}/{ln}_bias"] = ((L, d), "float32",
+                                                       zeros_init())
+            for name, d_in, d_out, bias in mats:
+                specs[f"blocks/{scope}/{name}"] = ((L, d_in, d_out), pd,
+                                                   lecun_init())
+                if bias:
+                    specs[f"blocks/{scope}/{name}_b"] = ((L, d_out), pd,
+                                                         zeros_init())
+
+        block("attn", "ln1", [("wq", d, cfg.q_dim, use_bias),
+                              ("wk", d, cfg.kv_dim, use_bias),
+                              ("wv", d, cfg.kv_dim, use_bias),
+                              ("wo", cfg.q_dim, d, use_bias)])
+        block("ffn", "ln2", [("wi", d, cfg.d_ff, use_bias)]
+              + ([("wg", d, cfg.d_ff, False)] if gated else [])
+              + [("wo", cfg.d_ff, d, use_bias)])
+        return specs
+
+    def init(self, seed: int = 0) -> Params:
+        """Random parameters on ``self.device`` from a ``torch.Generator``
+        seeded with ``seed``.
+
+        (The JAX package's ``jax.random`` draws cannot be reproduced here;
+        tests carry its parameters across with ``convert.params_from_jax``.)
+        """
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        return init_params(self.param_specs(), gen, self.device)
+
+    # -- forward (train / prefill) ----------------------------------------
+    def forward(self, params: Params, batch: Dict[str, torch.Tensor]):
+        """tokens (B, S) -> (logits (B, S, V), aux 0.0)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        s = tokens.shape[1]
+        positions = torch.arange(s, device=tokens.device)
+        ctx = Ctx(params)
+
+        def layer_fn(c, xx, cache=None):
+            return decoder_block(c, cfg, xx, positions=positions, causal=True)
+
+        with site_scope("decoder"):
+            x = embed(ctx, tokens, cfg)
+            x = run_policy_segments(layer_fn, params["blocks"], x,
+                                    segments=self.segments)
+            x = norm(ctx, "final_ln", x, cfg)
+            logits = unembed(ctx, x, cfg)
+        return logits, torch.zeros((), dtype=torch.float32,
+                                   device=tokens.device)
+
+    # -- paged KV cache (block tables; repro_torch.serve) --------------------
+    def init_paged_cache(self, num_blocks: int, block_size: int):
+        """Physical page pool ``k/v (layers, num_blocks*block_size + 1, KH,
+        HD)`` on ``self.device``. The extra last cell is the sink that
+        absorbs dropped writes (see ``layers._paged_kv_attend``)."""
+        cfg = self.cfg
+        if cfg.window:
+            raise ValueError(
+                f"paged KV cache needs window=0 (got window={cfg.window}: "
+                "ring buffers roll in place, pages are freed whole)")
+        cells = num_blocks * block_size
+        kshape = (cfg.n_layers, cells + 1, cfg.kv_heads, cfg.head_dim)
+        dt = torch_dtype(cfg.compute_dtype)
+        return {"k": torch.zeros(kshape, dtype=dt, device=self.device),
+                "v": torch.zeros(kshape, dtype=dt, device=self.device)}
+
+    def paged_step(self, params: Params, tokens: torch.Tensor, cache, *,
+                   block_size: int):
+        """One fixed-shape step over block tables: decode (S=1) and chunked
+        prefill (S=chunk).
+
+        tokens (B, S); cache holds the physical pools ``k/v`` from
+        :meth:`init_paged_cache` plus ``block_tables`` (B, MB) int32 page ids
+        (-1 = unmapped) and ``pos`` (B,), each row's write offset. Row ``i``
+        writes K/V for positions ``pos[i] .. pos[i]+S-1`` through its table
+        and attends over its own gathered pages; writes outside the mapped
+        pages are dropped and unmapped reads are causally masked.
+
+        The pools are updated in place (the reference donates them to its
+        jit'd step instead). Returns ``(logits (B, S, V), {k, v})``.
+        """
+        cfg = self.cfg
+        bt, pos = cache["block_tables"].long(), cache["pos"].long()
+        b, s = tokens.shape
+        mb = bt.shape[1]
+        cells = cache["k"].shape[1] - 1  # last cell: the drop sink
+        dev = tokens.device
+        positions = pos[:, None] + torch.arange(s, device=dev)  # (B, S)
+        # physical cell of every logical kv position (B, MB*block_size)
+        base = torch.where(bt < 0, cells, bt * block_size)
+        phys_read = (base[:, :, None] + torch.arange(block_size, device=dev)
+                     ).reshape(b, mb * block_size)
+        # physical cell of each written token; == cells means "drop"
+        lblk = positions // block_size
+        wblk = torch.take_along_dim(bt, lblk.clamp(max=mb - 1), dim=1)
+        write_idx = torch.where((wblk < 0) | (lblk >= mb), cells,
+                                wblk * block_size + positions % block_size)
+
+        ctx = Ctx(params)
+        pool = {"k": cache["k"], "v": cache["v"]}
+
+        def layer_fn(c, xx, lc=None):
+            lc = dict(lc, write_idx=write_idx, phys_read=phys_read)
+            return decoder_block(c, cfg, xx, positions=positions, cache=lc,
+                                 causal=True)
+
+        with site_scope("decoder"):
+            x = embed(ctx, tokens, cfg)
+            x = run_policy_segments(layer_fn, params["blocks"], x,
+                                    segments=self.segments, cache=pool)
+            x = norm(ctx, "final_ln", x, cfg)
+            logits = unembed(ctx, x, cfg)
+        return logits, pool

@@ -1,0 +1,27 @@
+"""Per-site approximation policies for DAISM numerics.
+
+Models name each contraction they perform (an *op-site*, e.g.
+``decoder/layer_3/attn/wq``) and resolve its numerics through an injectable
+:class:`ApproxPolicy`: an ordered list of glob rules mapping sites to
+:class:`~repro_torch.core.config.DaismConfig` values. The spec language and
+the resolution rules are those of the JAX package's ``repro.policy``.
+"""
+from __future__ import annotations
+
+from .dispatch import (attention_kernel, clear_log, effective_attn_config,
+                       kernel_stats, matmul_kernel, policy_dot,
+                       resolution_log, resolve_site, validate_for_dtype)
+from .policy import (EXACT, ApproxPolicy, Rule, describe_config,
+                     layer_signature, parse_config, parse_policy,
+                     plan_segments)
+from .sites import OpKind, current_path, current_prefix, site_scope
+
+__all__ = [
+    "ApproxPolicy", "Rule", "OpKind", "EXACT",
+    "parse_policy", "parse_config", "describe_config",
+    "site_scope", "current_path", "current_prefix",
+    "policy_dot", "resolve_site", "validate_for_dtype",
+    "resolution_log", "kernel_stats", "clear_log", "matmul_kernel",
+    "attention_kernel", "effective_attn_config",
+    "plan_segments", "layer_signature",
+]

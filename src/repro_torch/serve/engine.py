@@ -1,0 +1,709 @@
+"""Continuous-batching engine over a paged KV cache: per-request policy
+tiers, chunked prefill, prefix caching and an asynchronous tick loop.
+
+Ported from ``repro/serve/engine.py``:
+
+* **Paged KV pool** — one physical page pool for the whole engine:
+  ``k/v: (layers, num_blocks * block_size + 1, kv_heads, head_dim)`` (the
+  extra cell absorbs dropped writes). A request owns a *block table*
+  (kv_pool.BlockPool); full prompt blocks are ref-counted and
+  content-addressed (prefix caching).
+* **One step, block tables inside** — ``DecoderLM.paged_step`` resolves
+  block tables to gather/scatter indices inside the step: decode (S=1) and
+  chunked prefill (S=prefill_chunk) are two fixed shapes of one function.
+  The step updates the KV pool in place, where the reference donates it to
+  a jit'd step.
+* **Async tick loop** — each tick *launches* every group's prefill + decode
+  steps, then does the host-side work (arrival stamping, admission + page
+  reservation) while the card computes, and only then fetches the tokens.
+  Inputs go to the card through pinned host memory with non-blocking
+  copies, so no launch waits for the card; the token fetch is the one wait.
+  ``overlap=False`` fetches right after each launch (the sync baseline).
+* **Policy groups** — each request carries an approximation policy (tier
+  name from ``EngineConfig.tiers``, a raw spec, an ``ApproxPolicy``, or
+  None = the base model's). Requests batch by resolved policy: one scheduler
+  and one step per group, all groups sharing the page pool and the params.
+* **Accounting** — per-request TTFT / latency, inter-token gaps, tok/s,
+  step percentiles, KV utilization, peak concurrency, prefix-cache hits,
+  host idle time, and the steps each group launched.
+
+Not ported yet (they raise ``NotImplementedError`` naming the field):
+preemption/swap (``preempt``), speculative decoding (``spec_k``) and
+tensor-parallel sharding (``shards > 1``).
+
+Greedy (argmax) sampling keeps the output deterministic, so the same
+requests give the same tokens as the JAX engine on the same weights.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.models.module import flatten
+from repro_torch.policy import ApproxPolicy, parse_policy
+from repro_torch.runtime.device import resolve_device
+from repro_torch.runtime.watchdog import StepWatchdog
+
+from .kv_pool import SENTINEL, BlockPool
+from .scheduler import Request, RequestState, Scheduler
+
+
+def _pct(xs: Sequence[float], q: float) -> float:
+    return float(np.percentile(np.asarray(xs), q)) if len(xs) else 0.0
+
+
+def parse_tiers(spec: str) -> Tuple[Tuple[str, str], ...]:
+    """``"free=*=pc3_tr;paid=*/attn/*=exact"`` -> (("free", "*=pc3_tr"), ...).
+
+    Tiers are ';'-separated ``name=policy-spec`` entries (the spec itself
+    contains '=' and ',', so only the first '=' splits)."""
+    tiers = []
+    for item in spec.split(";"):
+        item = item.strip()
+        if not item:
+            continue
+        name, sep, policy = item.partition("=")
+        if not sep or not name.strip() or not policy.strip():
+            raise ValueError(
+                f"bad tier entry {item!r}: expected name=policy-spec "
+                "(e.g. 'free=*=pc3_tr')")
+        tiers.append((name.strip(), policy.strip()))
+    return tuple(tiers)
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Paged-serving engine configuration (the JAX package's fields).
+
+    ``num_slots`` is the decode-batch width of each policy group, decoupled
+    from KV memory: ``num_blocks`` pages of ``block_size`` cells bound how
+    many tokens of K/V exist at once (0 = ``num_slots * max_seq /
+    block_size``). ``tiers`` registers named policy specs requests can
+    reference. ``overlap=False`` disables the async tick loop.
+
+    ``shards``, ``preempt``/``swap_blocks`` and ``spec_draft``/``spec_k``/
+    ``spec_min_accept`` are validated as in the reference; the engine
+    refuses ``shards > 1``, ``preempt=True`` and ``spec_k > 0``, which are
+    not ported yet.
+    """
+
+    num_slots: int = 4
+    max_seq: int = 128
+    block_size: int = 16
+    num_blocks: int = 0
+    prefill_chunk: int = 16
+    eos_id: Optional[int] = None
+    tiers: Tuple[Tuple[str, str], ...] = ()
+    shards: int = 1
+    preempt: bool = False
+    swap_blocks: int = 0
+    overlap: bool = True
+    spec_draft: str = ""
+    spec_k: int = 0
+    spec_min_accept: float = 0.25
+
+    def __post_init__(self) -> None:
+        for field in ("num_slots", "max_seq", "block_size", "prefill_chunk",
+                      "shards"):
+            v = getattr(self, field)
+            if not isinstance(v, int) or v < 1:
+                raise ValueError(
+                    f"EngineConfig.{field} must be a positive int "
+                    f"(got {v!r})")
+        if self.num_blocks < 0:
+            raise ValueError(
+                f"EngineConfig.num_blocks must be >= 0 "
+                f"(0 = auto; got {self.num_blocks})")
+        if self.swap_blocks < 0:
+            raise ValueError(
+                f"EngineConfig.swap_blocks must be >= 0 "
+                f"(0 = one request's worth; got {self.swap_blocks})")
+        if self.max_seq % self.block_size:
+            raise ValueError(
+                f"EngineConfig.max_seq ({self.max_seq}) must be a multiple "
+                f"of block_size ({self.block_size}): block tables map whole "
+                "pages")
+        if self.prefill_chunk > self.max_seq:
+            raise ValueError(
+                f"EngineConfig.prefill_chunk ({self.prefill_chunk}) must be "
+                f"<= max_seq ({self.max_seq})")
+        if self.prefill_chunk & (self.prefill_chunk - 1):
+            raise ValueError(
+                f"EngineConfig.prefill_chunk ({self.prefill_chunk}) must be "
+                "a power of two (one compiled prefill shape)")
+        if not isinstance(self.spec_k, int) or self.spec_k < 0:
+            raise ValueError(
+                f"EngineConfig.spec_k must be an int >= 0 "
+                f"(0 = speculation off; got {self.spec_k!r})")
+        if not isinstance(self.spec_draft, str):
+            raise ValueError(
+                "EngineConfig.spec_draft must be a tier name or policy spec "
+                f"string (got {type(self.spec_draft).__name__})")
+        if bool(self.spec_k) != bool(self.spec_draft):
+            raise ValueError(
+                "EngineConfig: spec_draft and spec_k enable speculative "
+                "decoding together — set both (spec_draft=<tier|spec>, "
+                f"spec_k>=1) or neither (got spec_draft={self.spec_draft!r}, "
+                f"spec_k={self.spec_k})")
+        if self.spec_k >= self.max_seq:
+            raise ValueError(
+                f"EngineConfig.spec_k ({self.spec_k}) must be < max_seq "
+                f"({self.max_seq}): the verify window is spec_k+1 positions "
+                "of one request's cache")
+        if not 0.0 <= self.spec_min_accept <= 1.0:
+            raise ValueError(
+                f"EngineConfig.spec_min_accept must be in [0, 1] "
+                f"(got {self.spec_min_accept})")
+        if isinstance(self.tiers, dict):  # ergonomics: accept a dict
+            object.__setattr__(self, "tiers", tuple(self.tiers.items()))
+        for name, spec in self.tiers:
+            if not isinstance(name, str) or not isinstance(spec, str):
+                raise ValueError(
+                    f"EngineConfig.tiers entries must be (name, spec) "
+                    f"string pairs (got {(name, spec)!r})")
+
+    def validate_for_model(self, model_cfg) -> None:
+        """Model/engine compatibility: a windowed (ring-buffer) cache can
+        never be paged."""
+        window = getattr(model_cfg, "window", 0)
+        if window:
+            raise ValueError(
+                f"EngineConfig: ArchConfig.window={window} (on "
+                f"{getattr(model_cfg, 'name', '?')!r}) is incompatible with "
+                "the paged KV cache — ring buffers roll in place, pages are "
+                "freed whole; serve with window=0 (e.g. cfg.smoke(window=0))")
+
+    def check_ported(self) -> None:
+        """Refuse the engine features that are not ported yet."""
+        if self.preempt:
+            raise NotImplementedError(
+                "EngineConfig.preempt=True (preemption/swap) is not ported "
+                "yet")
+        if self.spec_k:
+            raise NotImplementedError(
+                "EngineConfig.spec_k>0 (speculative decoding) is not ported "
+                "yet")
+        if self.shards > 1:
+            raise NotImplementedError(
+                "EngineConfig.shards>1 (tensor-parallel serving) is not "
+                "ported yet")
+
+    @property
+    def blocks(self) -> int:
+        """Physical pool pages (resolves the ``num_blocks=0`` default)."""
+        return self.num_blocks or self.num_slots * (self.max_seq
+                                                    // self.block_size)
+
+    @property
+    def max_blocks_per_seq(self) -> int:
+        return self.max_seq // self.block_size
+
+
+@dataclasses.dataclass
+class ServeReport:
+    """Aggregate accounting for one engine run.
+
+    Percentiles are unfiltered wall times. In async mode (``overlap=True``)
+    step times span launch -> fetch, so they include the overlapped host
+    work; ``host_idle_s`` counts only the time blocked on token fetches."""
+
+    completed: List[RequestState]
+    wall_s: float
+    prefill_s: float
+    decode_s: float
+    decode_steps: int
+    generated_tokens: int
+    tokens_per_s: float
+    ttft_p50_ms: float
+    ttft_p95_ms: float
+    ttft_p99_ms: float
+    latency_p50_ms: float
+    latency_p95_ms: float
+    latency_p99_ms: float
+    tok_lat_p50_ms: float
+    tok_lat_p95_ms: float
+    tok_lat_p99_ms: float
+    step_p50_ms: float
+    step_p99_ms: float
+    joined_mid_stream: int
+    straggler_steps: int
+    ticks: int
+    host_idle_s: float
+    host_idle_frac: float
+    kv_util_mean: float
+    kv_util_peak: float
+    peak_active_requests: int
+    prefix_hits: int
+    policy_groups: int
+    events: List[Dict[str, Any]]
+    # group label -> steps launched (prefill + decode), for launch accounting
+    group_steps: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+    def summary(self) -> str:
+        return "\n".join([
+            f"requests {len(self.completed)}  generated "
+            f"{self.generated_tokens} tok  wall {self.wall_s:.2f}s  "
+            f"({self.tokens_per_s:.1f} tok/s decode)",
+            f"prefill {self.prefill_s * 1e3:.1f} ms total;  decode step "
+            f"p50 {self.step_p50_ms:.2f} / p99 {self.step_p99_ms:.2f} ms"
+            f" over {self.decode_steps} steps"
+            f" ({self.straggler_steps} stragglers)",
+            f"TTFT p50 {self.ttft_p50_ms:.1f} / p95 {self.ttft_p95_ms:.1f} "
+            f"/ p99 {self.ttft_p99_ms:.1f} ms;  request latency p50 "
+            f"{self.latency_p50_ms:.1f} / p95 {self.latency_p95_ms:.1f} / "
+            f"p99 {self.latency_p99_ms:.1f} ms",
+            f"inter-token p50 {self.tok_lat_p50_ms:.2f} / p95 "
+            f"{self.tok_lat_p95_ms:.2f} / p99 {self.tok_lat_p99_ms:.2f} ms",
+            f"host idle {self.host_idle_s * 1e3:.1f} ms "
+            f"({self.host_idle_frac * 100:.1f}% of wall) over {self.ticks} "
+            "ticks",
+            f"KV util mean {self.kv_util_mean * 100:.1f}% / peak "
+            f"{self.kv_util_peak * 100:.1f}%;  peak concurrency "
+            f"{self.peak_active_requests};  {self.prefix_hits} prefix-cache "
+            f"block hit(s);  {self.policy_groups} policy group(s)",
+            f"{self.joined_mid_stream} request(s) joined the running batch "
+            "mid-stream (continuous batching)",
+        ])
+
+
+class _PolicyGroup:
+    """One resolved approximation policy: a model rebound to that policy, a
+    scheduler over ``num_slots`` decode rows, and the per-row host-side
+    metadata (block tables, last tokens)."""
+
+    def __init__(self, label: str, policy: Optional[ApproxPolicy], model,
+                 cfg: EngineConfig):
+        self.label = label
+        self.policy = policy
+        self.model = model
+        self.sched = Scheduler(cfg.num_slots)
+        self.tables = np.full((cfg.num_slots, cfg.max_blocks_per_seq),
+                              SENTINEL, np.int32)
+        self.last_tok = np.zeros((cfg.num_slots,), np.int32)
+        self.steps = 0  # steps launched (prefill + decode)
+
+    @property
+    def prefill_rows(self) -> Dict[int, RequestState]:
+        return {s: st for s, st in self.sched.active.items() if st.prefilling}
+
+    @property
+    def decode_rows(self) -> Dict[int, RequestState]:
+        return {s: st for s, st in self.sched.active.items()
+                if not st.prefilling}
+
+
+def group_step(model, params, kv, tokens, tables, pos, last_idx, *,
+               block_size: int) -> torch.Tensor:
+    """One group's paged step: the argmax token at each row's last real
+    position. Updates the KV pool ``kv`` in place (the reference donates it
+    to a jit'd step instead) and returns without waiting for the card."""
+    cache = dict(kv, block_tables=tables, pos=pos)
+    logits, _ = model.paged_step(params, tokens, cache, block_size=block_size)
+    idx = last_idx.long()[:, None, None].expand(-1, 1, logits.shape[-1])
+    last = torch.gather(logits, 1, idx)  # (R, 1, V) at the true length
+    return torch.argmax(last[:, 0, :], dim=-1)
+
+
+class ServeEngine:
+    """Drives a DecoderLM-style model (init_paged_cache / paged_step)
+    through paged continuous-batching generation on ``device`` (default: the
+    card; ``params`` must live there). ``run`` blocks until every submitted
+    request completes."""
+
+    # ticks with arrived work but no launches and no admissions before the
+    # engine declares a livelock
+    _STUCK_TICKS = 1000
+
+    def __init__(self, model, params, cfg: EngineConfig, device="cuda"):
+        if not hasattr(model, "paged_step"):
+            raise TypeError(
+                f"{type(model).__name__} has no paged_step(); the serving "
+                "engine requires the DecoderLM paged-cache API")
+        cfg.check_ported()
+        if hasattr(model, "cfg"):
+            cfg.validate_for_model(model.cfg)
+        self.device = resolve_device(device)
+        if model.device != self.device:
+            raise ValueError(f"model allocates on {model.device}, engine runs "
+                             f"on {self.device}")
+        for path, t in flatten(params).items():
+            if t.device != self.device:
+                raise ValueError(f"param {path} lies on {t.device}, engine "
+                                 f"runs on {self.device}")
+        self.model = model
+        self.cfg = cfg
+        self.params = params
+        self.pool = BlockPool(cfg.blocks, cfg.block_size)
+        self.kv = model.init_paged_cache(cfg.blocks, cfg.block_size)
+        self._tiers: Dict[str, ApproxPolicy] = {
+            name: parse_policy(spec, name=name) for name, spec in cfg.tiers}
+        self.groups: Dict[Optional[ApproxPolicy], _PolicyGroup] = {}
+        self._pending_alloc: Dict[int, Tuple[List[int], int]] = {}
+        self._next_id = 0
+
+        self.step = 0
+        self.events: List[Dict[str, Any]] = []
+        self.watchdog = StepWatchdog()
+        self._step_times: List[float] = []
+        self._prefill_s = 0.0
+        self._idle_s = 0.0
+        self._tok_gaps: List[float] = []
+        self._util_samples: List[float] = []
+        self._util_peak = 0.0
+        self._peak_active = 0
+        self._stuck_ticks = 0
+
+    # -- request intake ----------------------------------------------------
+
+    def _resolve_policy(self, policy) -> Optional[ApproxPolicy]:
+        if policy is None or isinstance(policy, ApproxPolicy):
+            return policy
+        if isinstance(policy, str):
+            if policy in self._tiers:
+                return self._tiers[policy]
+            if "=" in policy:
+                return parse_policy(policy)
+            raise ValueError(
+                f"unknown policy tier {policy!r}: registered tiers are "
+                f"{sorted(self._tiers)} (or pass a spec like '*=pc3_tr')")
+        raise TypeError(
+            f"Request.policy must be None, a tier name, a spec string, or "
+            f"an ApproxPolicy (got {type(policy).__name__})")
+
+    def _group_for(self, policy: Optional[ApproxPolicy]) -> _PolicyGroup:
+        # the group key ignores the policy's display name: a tier name and
+        # the equivalent raw spec share one group and one prefix cache
+        key = (None if policy is None
+               else dataclasses.replace(policy, name=""))
+        group = self.groups.get(key)
+        if group is None:
+            if policy is None:
+                label, model = "base", self.model
+            else:
+                from repro_torch.models.registry import build_model
+
+                label = policy.name or f"policy_{len(self.groups)}"
+                model = build_model(self.model.cfg.with_policy(policy),
+                                    device=self.device)
+            group = _PolicyGroup(label, key, model, self.cfg)
+            self.groups[key] = group
+        return group
+
+    def submit(self, request: Request) -> RequestState:
+        if not request.prompt:
+            raise ValueError("prompt must be non-empty")
+        if request.max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1 (prefill always "
+                             "yields the first token)")
+        need = len(request.prompt) + request.max_new_tokens
+        if need > self.cfg.max_seq:
+            raise ValueError(
+                f"request needs {need} cache positions > max_seq "
+                f"{self.cfg.max_seq}")
+        group = self._group_for(self._resolve_policy(request.policy))
+        state = group.sched.submit(request, now=time.perf_counter())
+        state.request_id = self._next_id  # engine-global, not per-group
+        self._next_id += 1
+        state.group = group.label
+        if state.eos_id is None:  # engine default; the Request is not mutated
+            state.eos_id = self.cfg.eos_id
+        return state
+
+    # -- engine internals --------------------------------------------------
+
+    def _event(self, kind: str, state: RequestState, slot: int, **kw):
+        self.events.append(dict(step=self.step, event=kind,
+                                request_id=state.request_id,
+                                slot=slot, group=state.group, **kw))
+
+    def _try_reserve(self, group: _PolicyGroup, state: RequestState) -> bool:
+        """Admission gate: reserve the request's whole-lifetime pages
+        (prompt + gen - 1), so an admitted request can always finish."""
+        req = state.request
+        total = len(req.prompt) + req.max_new_tokens - 1
+        alloc = self.pool.allocate(state.request_id, req.prompt,
+                                   max(total, 1), policy_key=group.policy)
+        if alloc is None:
+            return False
+        self._pending_alloc[state.request_id] = alloc
+        return True
+
+    def _admit(self, group: _PolicyGroup, admitted: List[RequestState]):
+        for state in admitted:
+            table, cached_len = self._pending_alloc.pop(state.request_id)
+            group.tables[state.slot] = SENTINEL
+            group.tables[state.slot, :len(table)] = table
+            state.next_pos = cached_len
+            state.cached_len = cached_len
+            self._event("admit", state, state.slot,
+                        joined_running=state.joined_running_batch,
+                        blocks=len(table),
+                        cached_blocks=cached_len // self.cfg.block_size)
+
+    def _append_token(self, group: _PolicyGroup, state: RequestState,
+                      token: int):
+        now = time.perf_counter()
+        if state.last_token_time:
+            gap = now - state.last_token_time
+            state.token_gaps_s.append(gap)
+            self._tok_gaps.append(gap)
+        state.last_token_time = now
+        state.output.append(token)
+        group.last_tok[state.slot] = token
+        reason = ""
+        if state.eos_id is not None and token == state.eos_id:
+            reason = "eos"
+        elif len(state.output) >= state.request.max_new_tokens:
+            reason = "length"
+        if reason:
+            slot = state.slot  # retire() resets it; event wants the real one
+            group.sched.retire(slot, reason, self.step, now=now)
+            group.tables[slot] = SENTINEL
+            self.pool.free(state.request_id)
+            self._event("retire", state, slot, reason=reason)
+
+    # -- launch / fetch / apply (async tick phases) --------------------------
+
+    def _to_device(self, arr: np.ndarray, keep: list) -> torch.Tensor:
+        """Host array -> device tensor without blocking the host: pinned
+        staging + non-blocking copy on CUDA. ``keep`` holds the staging
+        buffer until the record is fetched."""
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type != "cuda":
+            return t
+        t = t.pin_memory()
+        keep.append(t)
+        return t.to(self.device, non_blocking=True)
+
+    def _launch(self, group: _PolicyGroup, tokens, tables, pos, last_idx):
+        keep: list = []
+        with torch.inference_mode():
+            tok = group_step(
+                group.model, self.params, self.kv,
+                self._to_device(tokens, keep).long(),
+                self._to_device(tables, keep),
+                self._to_device(pos, keep),
+                self._to_device(last_idx, keep),
+                block_size=self.cfg.block_size)
+        group.steps += 1
+        return tok, keep
+
+    def _launch_prefill(self, group: _PolicyGroup) -> Optional[dict]:
+        """Launch one prefill chunk for every row of ``group`` still
+        ingesting its prompt; rows reaching the last prompt token emit their
+        first generated token at apply time. Decode rows are masked out
+        (sentinel tables) so their K/V is untouched."""
+        rows = group.prefill_rows
+        if not rows:
+            return None
+        cfg = self.cfg
+        chunk = cfg.prefill_chunk
+        r = cfg.num_slots
+        tokens = np.zeros((r, chunk), np.int32)
+        tables = np.full_like(group.tables, SENTINEL)
+        pos = np.zeros((r,), np.int32)
+        last_idx = np.zeros((r,), np.int32)
+        finishing: Set[int] = set()
+        for slot, state in rows.items():
+            prompt = state.request.prompt
+            piece = prompt[state.next_pos:state.next_pos + chunk]
+            tokens[slot, :len(piece)] = piece
+            tables[slot] = group.tables[slot]
+            pos[slot] = state.next_pos
+            last_idx[slot] = len(piece) - 1
+            if state.next_pos + len(piece) == len(prompt):
+                finishing.add(slot)
+            state.next_pos += len(piece)
+        t0 = time.perf_counter()
+        tok, keep = self._launch(group, tokens, tables, pos, last_idx)
+        return {"group": group, "kind": "prefill", "rows": rows,
+                "finishing": finishing, "tok": tok, "keep": keep, "t0": t0}
+
+    def _launch_decode(self, group: _PolicyGroup) -> Optional[dict]:
+        """Launch one decode token for every generating row of ``group``;
+        prefill and idle rows are masked out."""
+        rows = group.decode_rows
+        if not rows:
+            return None
+        r = self.cfg.num_slots
+        tables = np.full_like(group.tables, SENTINEL)
+        pos = np.zeros((r,), np.int32)
+        for slot, state in rows.items():
+            tables[slot] = group.tables[slot]
+            pos[slot] = state.seq_len  # write position of the fed-back token
+        t0 = time.perf_counter()
+        tok, keep = self._launch(group, group.last_tok[:, None].copy(),
+                                 tables, pos, np.zeros((r,), np.int32))
+        return {"group": group, "kind": "decode", "rows": rows,
+                "tok": tok, "keep": keep, "t0": t0}
+
+    def _fetch(self, rec: dict):
+        """Wait for a launched step's tokens: the only host wait in the
+        loop; the waiting time is the tick's idle accounting."""
+        if "np_tok" in rec:
+            return
+        t0 = time.perf_counter()
+        rec["np_tok"] = rec.pop("tok").cpu().numpy()
+        rec.pop("keep")
+        t1 = time.perf_counter()
+        self._idle_s += t1 - t0
+        rec["dt"] = t1 - rec["t0"]
+
+    def _apply(self, rec: dict):
+        """Fold a fetched step's tokens back into scheduler/pool state."""
+        group, rows, tok = rec["group"], rec["rows"], rec["np_tok"]
+        dt = rec["dt"]
+        if rec["kind"] == "prefill":
+            self._prefill_s += dt
+            now = time.perf_counter()
+            for slot, state in rows.items():
+                state.prefill_s += dt
+                if slot in rec["finishing"]:
+                    state.first_token_time = now
+                    self.pool.commit_prefix(state.request_id)
+                    self._append_token(group, state, int(tok[slot]))
+                if state.request_id in self.pool:
+                    self.pool.advance(state.request_id, state.seq_len)
+        else:
+            self._step_times.append(dt)
+            self.watchdog.observe(dt)
+            for slot, state in list(rows.items()):
+                self._append_token(group, state, int(tok[slot]))
+                if state.request_id in self.pool:
+                    self.pool.advance(state.request_id, state.seq_len)
+
+    # -- tick loop -----------------------------------------------------------
+
+    def _stamp_arrivals(self, now: float):
+        for group in self.groups.values():
+            for waiting in group.sched.waiting:  # trace replay: stamp arrival
+                if (waiting.arrival_time == 0.0
+                        and waiting.request.arrival_step <= self.step):
+                    waiting.arrival_time = now
+
+    def _admit_all(self) -> bool:
+        any_admitted = False
+        for group in self.groups.values():
+            admitted = group.sched.admit(
+                self.step,
+                can_admit=lambda st, g=group: self._try_reserve(g, st))
+            if admitted:
+                self._admit(group, admitted)
+                any_admitted = True
+        return any_admitted
+
+    def _sample_util(self):
+        active = sum(len(g.sched.active) for g in self.groups.values())
+        if active:
+            util = self.pool.utilization()["pool_util"]
+            self._util_samples.append(util)
+            self._util_peak = max(self._util_peak, util)
+
+    def tick(self) -> bool:
+        """One engine iteration, in phases:
+
+        1. *launch* every group's prefill chunk + decode step without
+           waiting (``overlap=False``: fetch right after each launch);
+        2. host work while the card runs: arrival stamping, admission +
+           page reservation, utilization sampling;
+        3. token fetch, then fold tokens into scheduler state;
+        4. post-retirement admission (pages just freed).
+
+        Returns False when fully drained."""
+        if not any(g.sched.has_work for g in self.groups.values()):
+            return False
+        inflight = []
+        for launch in (self._launch_prefill, self._launch_decode):
+            for group in self.groups.values():
+                rec = launch(group)
+                if rec is not None:
+                    inflight.append(rec)
+                    if not self.cfg.overlap:
+                        self._fetch(rec)
+        self._stamp_arrivals(time.perf_counter())
+        admitted = self._admit_all()
+        self._sample_util()
+        for rec in inflight:
+            # fetch+apply interleaved: an earlier record's host bookkeeping
+            # runs while later records are still computing on the card
+            self._fetch(rec)
+            self._apply(rec)
+        admitted |= self._admit_all()
+        self._peak_active = max(
+            self._peak_active,
+            sum(len(g.sched.active) for g in self.groups.values()))
+        arrived_waiting = any(
+            st.request.arrival_step <= self.step
+            for g in self.groups.values() for st in g.sched.waiting)
+        if inflight or admitted or not arrived_waiting:
+            self._stuck_ticks = 0
+        else:
+            self._stuck_ticks += 1
+            if self._stuck_ticks >= self._STUCK_TICKS:
+                raise RuntimeError(
+                    f"serving livelock: {self._stuck_ticks} ticks with "
+                    "waiting work but no progress — the KV pool cannot host "
+                    "any runnable request")
+        self.step += 1
+        return any(g.sched.has_work for g in self.groups.values())
+
+    # -- driver ------------------------------------------------------------
+
+    def run(self, requests: Sequence[Request]) -> ServeReport:
+        """Serve ``requests`` to completion and report. Single-use: build a
+        fresh engine for another run."""
+        if self._step_times or any(g.sched.finished
+                                   for g in self.groups.values()):
+            raise RuntimeError(
+                "ServeEngine.run() is single-use; build a fresh engine")
+        for r in requests:
+            self.submit(r)
+        t0 = time.perf_counter()
+        while self.tick():
+            pass
+        wall = time.perf_counter() - t0
+        done = [s for g in self.groups.values() for s in g.sched.finished]
+        done.sort(key=lambda s: s.request_id)
+        generated = sum(len(s.output) for s in done)
+        decode_s = float(sum(self._step_times))
+        # prefill produces 1 token/request; the rest ride decode steps
+        decode_tokens = generated - len(done)
+        gaps_ms = [g * 1e3 for g in self._tok_gaps]
+        return ServeReport(
+            completed=done,
+            wall_s=wall,
+            prefill_s=self._prefill_s,
+            decode_s=decode_s,
+            decode_steps=len(self._step_times),
+            generated_tokens=generated,
+            tokens_per_s=decode_tokens / decode_s if decode_s else 0.0,
+            ttft_p50_ms=_pct([s.ttft_s * 1e3 for s in done], 50),
+            ttft_p95_ms=_pct([s.ttft_s * 1e3 for s in done], 95),
+            ttft_p99_ms=_pct([s.ttft_s * 1e3 for s in done], 99),
+            latency_p50_ms=_pct([s.latency_s * 1e3 for s in done], 50),
+            latency_p95_ms=_pct([s.latency_s * 1e3 for s in done], 95),
+            latency_p99_ms=_pct([s.latency_s * 1e3 for s in done], 99),
+            tok_lat_p50_ms=_pct(gaps_ms, 50),
+            tok_lat_p95_ms=_pct(gaps_ms, 95),
+            tok_lat_p99_ms=_pct(gaps_ms, 99),
+            step_p50_ms=_pct([t * 1e3 for t in self._step_times], 50),
+            step_p99_ms=_pct([t * 1e3 for t in self._step_times], 99),
+            joined_mid_stream=sum(s.joined_running_batch for s in done),
+            straggler_steps=self.watchdog.stragglers,
+            ticks=self.step,
+            host_idle_s=self._idle_s,
+            host_idle_frac=self._idle_s / wall if wall else 0.0,
+            kv_util_mean=(float(np.mean(self._util_samples))
+                          if self._util_samples else 0.0),
+            kv_util_peak=self._util_peak,
+            peak_active_requests=self._peak_active,
+            prefix_hits=self.pool.prefix_hits,
+            policy_groups=len(self.groups),
+            events=self.events,
+            group_steps={g.label: g.steps for g in self.groups.values()},
+        )
+
