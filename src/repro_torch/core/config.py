@@ -82,6 +82,9 @@ class DaismConfig:
       accum_dtype: exact accumulator dtype used by the GEMM reduction.
       backward: 'ste' uses exact gradients (straight-through), 'approx'
         routes the backward GEMMs through the approximate multiplier too.
+        With backend 'pallas' those GEMMs launch the CUDA kernel on
+        transposed operands; the JAX package refuses that combination at
+        construction (its Pallas kernel has no backward), the port runs it.
       k_chunk: K-dim chunk size used by the jnp backend to bound the
         materialized (M, Kc, N) intermediate.
       block_m/block_n/block_k: tiling knobs of the JAX package's Pallas
@@ -92,7 +95,7 @@ class DaismConfig:
         tensors) or its plain version (CPU tensors).
       attn_kernel: how attention-score sites (OpKind.ATTN_QK) execute.
         'jnp' keeps the exact online-softmax path; 'flash' selects the fused
-        flash-attention kernel, which is not ported yet.
+        flash-attention kernel (kernels/flash_attention.py).
     """
 
     variant: Variant = Variant.PC3_TR
@@ -125,11 +128,6 @@ class DaismConfig:
                 "pallas block sizes must be >= 1, got "
                 f"(block_m={self.block_m}, block_n={self.block_n}, "
                 f"block_k={self.block_k})")
-        if (self.backend is Backend.PALLAS and not self.exact
-                and self.backward == "approx"):
-            raise ValueError(
-                "backend 'pallas' has no approximate backward kernel; use "
-                "backward='ste' (exact gradients) or backend='jnp'")
 
     def validate_for_dtype(self, dtype, *, site: str = "") -> None:
         """Check this config can run on ``dtype`` operands; see

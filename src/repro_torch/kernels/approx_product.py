@@ -97,22 +97,26 @@ def compose_products_f32(x_fields, w_fields, variant: Variant) -> torch.Tensor:
 
 def approx_matmul_tile(a: torch.Tensor, w: torch.Tensor, variant: Variant, *,
                        k_fuse: int = K_FUSE) -> torch.Tensor:
-    """(M, K) @ (K, N) bf16 -> (M, N) f32, fused shift/OR sweep over K.
+    """(..., M, K) @ (..., K, N) bf16 -> (..., M, N) f32, fused shift/OR
+    sweep over K; leading dims broadcast (the flash-attention plain version
+    contracts every head at once).
 
     ``a`` is the multiplier (input), ``w`` the multiplicand (weight).
     Operand decomposition is hoisted out of the sweep.
     """
     variant = Variant(variant)
-    m, k = a.shape
-    n = w.shape[1]
-    sx, ex, mx = decompose_bf16_i32(a)   # (M, K)
-    sw, ew, mw = decompose_bf16_i32(w)   # (K, N)
-    acc = torch.zeros((m, n), dtype=torch.float32, device=a.device)
+    m, k = a.shape[-2:]
+    n = w.shape[-1]
+    lead = torch.broadcast_shapes(a.shape[:-2], w.shape[:-2])
+    sx, ex, mx = decompose_bf16_i32(a)   # (..., M, K)
+    sw, ew, mw = decompose_bf16_i32(w)   # (..., K, N)
+    acc = torch.zeros((*lead, m, n), dtype=torch.float32, device=a.device)
     for lo in range(0, k, k_fuse):
         hi = min(lo + k_fuse, k)
         slab = compose_products_f32(
-            (sx[:, lo:hi, None], ex[:, lo:hi, None], mx[:, lo:hi, None]),
-            (sw[None, lo:hi, :], ew[None, lo:hi, :], mw[None, lo:hi, :]),
+            (sx[..., lo:hi, None], ex[..., lo:hi, None], mx[..., lo:hi, None]),
+            (sw[..., None, lo:hi, :], ew[..., None, lo:hi, :],
+             mw[..., None, lo:hi, :]),
             variant)
-        acc = acc + slab.sum(dim=1)
+        acc = acc + slab.sum(dim=-2)
     return acc

@@ -4,12 +4,13 @@ Every parameter GEMM routes through :func:`dense`, which resolves its
 numerics per op-site through the architecture's approximation policy
 (``cfg.approx_policy``, see :mod:`repro_torch.policy`). The dynamic
 attention GEMMs (qk^T, att@v) run exact in :func:`attend`; a ``:flash``
-rule selects the fused flash-attention kernel, which is not ported yet.
+rule on an eligible call selects the fused flash-attention kernel
+(``kernels/flash_attention.py``), exact or with the rule's DAISM product.
 
 Ported from ``repro/models/layers.py`` with the same masks, sentinels and
 chunked online softmax, so f32 rounding stays close to the reference.
-Deferred: the tensor-parallel ``shard_map`` branch of paged attention,
-cross attention, and the slot caches of ``decode_step``/``prefill``.
+Deferred: the tensor-parallel ``shard_map`` branch of paged attention and
+the slot caches of ``decode_step``/``prefill``.
 """
 from __future__ import annotations
 
@@ -131,7 +132,10 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     With ``policy`` set, the call resolves the ambient ``kernel`` site
     (OpKind.ATTN_QK); a rule that opts into ``:flash`` on an eligible shape
-    selects the flash-attention kernel, which raises until it is ported.
+    (shared 1-D positions, no window, no softcap, and sq == skv when causal:
+    the kernel masks by index) runs the flash-attention kernel under the
+    resolved config. Ineligible calls resolve, and are recorded, as EXACT
+    and take the path below.
     """
     b, sq, h, d = q.shape
     skv, kh = k.shape[1], k.shape[2]
@@ -261,6 +265,23 @@ def self_attention(ctx: Ctx, x: torch.Tensor, cfg: ArchConfig, *,
                      policy=cfg.approx_policy)
     out = out.reshape(b, s, nh * hd)
     return dense(ctx, "wo", out, cfg, use_bias=use_bias), new_cache
+
+
+def cross_attention(ctx: Ctx, x: torch.Tensor, kv_src: torch.Tensor,
+                    cfg: ArchConfig, *, use_bias: bool = False) -> torch.Tensor:
+    """Full (non-causal) cross attention against encoder/image states."""
+    nh, kh, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    b, s, _ = x.shape
+    skv = kv_src.shape[1]
+    q = dense(ctx, "wq", x, cfg, use_bias=use_bias).reshape(b, s, nh, hd)
+    k = dense(ctx, "wk", kv_src, cfg, use_bias=use_bias).reshape(b, skv, kh, hd)
+    v = dense(ctx, "wv", kv_src, cfg, use_bias=use_bias).reshape(b, skv, kh, hd)
+    out = attend(q, k, v, torch.arange(s, device=x.device),
+                 torch.arange(skv, device=x.device), causal=False,
+                 chunk=skv,  # single chunk: small KV, uniform attn trips
+                 score_dtype=cfg.attn_score_dtype, policy=cfg.approx_policy)
+    out = out.reshape(b, s, nh * hd)
+    return dense(ctx, "wo", out, cfg, use_bias=use_bias)
 
 
 # ---------------------------------------------------------------------------

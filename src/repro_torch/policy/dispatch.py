@@ -8,8 +8,9 @@ The single injection point between models and the DAISM GEMM:
 * Backend/dtype combinations are validated at resolution (actionable errors
   naming the site), and the decision is recorded in a per-policy resolution
   log with the site's multiply count.
-* GEMM callables are cached per distinct resolved :class:`DaismConfig`
-  (:func:`matmul_kernel`); :func:`kernel_stats` exposes the cache counters.
+* GEMM and flash-attention callables are cached per distinct resolved
+  :class:`DaismConfig` (:func:`matmul_kernel`, :func:`attention_kernel`);
+  :func:`kernel_stats` exposes the GEMM cache counters.
 
 The energy report (``site_report``, ``estimated_energy_uj``) and the
 analyzer's ``observe_sites`` hook need ``core/energy.py`` and ``analyze/``,
@@ -19,6 +20,8 @@ from __future__ import annotations
 
 import functools
 from typing import Callable, Dict, Optional, Tuple
+
+import torch
 
 from repro_torch.core.config import DaismConfig, dtype_name
 
@@ -73,7 +76,7 @@ def validate_for_dtype(cfg: DaismConfig, dtype, *, site: str = "") -> None:
 # policy -> {(path, kind): (config, dtype_name, macs_per_call)}
 _LOG: Dict[ApproxPolicy, Dict[Tuple[str, OpKind],
                               Tuple[DaismConfig, str, int]]] = {}
-_STATS = {"kernel_builds": 0, "kernel_calls": 0}
+_STATS = {"kernel_builds": 0, "kernel_calls": 0, "attention_calls": 0}
 
 
 def clear_log(policy: Optional[ApproxPolicy] = None) -> None:
@@ -114,10 +117,34 @@ def matmul_kernel(cfg: DaismConfig) -> Callable:
     return kernel
 
 
+@functools.lru_cache(maxsize=None)
 def attention_kernel(cfg: DaismConfig) -> Callable:
-    """The fused flash-attention kernel: not ported yet."""
-    raise NotImplementedError(
-        "flash attention is not ported yet; see ROADMAP §B2")
+    """One flash-attention callable per distinct resolved config.
+
+    ``kernel(q, k, v, causal)`` takes (B, S, H, D) tensors (grouped-query
+    heads and ragged lengths are handled by ``flash_attention_bhsd``). Exact
+    configs run the kernel with f32 contractions (``variant=None``);
+    approximate configs fuse the config's DAISM product into QK and PV.
+    The kernel has no gradient, as in the reference: asked for one, it
+    raises. Builds count in ``_STATS["kernel_builds"]`` (with the GEMMs'),
+    calls in ``_STATS["attention_calls"]``.
+    """
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+
+    _STATS["kernel_builds"] += 1
+    variant = None if cfg.exact else cfg.variant
+
+    def kernel(q, k, v, causal):
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+            raise NotImplementedError(
+                "flash attention has no backward: the JAX package's flash "
+                "kernel (repro/kernels/flash_attention.py) has no custom_vjp "
+                "and jax.grad cannot go through its pallas_call; train under "
+                "a policy without ':flash' or run under torch.no_grad()")
+        _STATS["attention_calls"] += 1
+        return flash_attention_bhsd(q, k, v, causal=causal, variant=variant)
+
+    return kernel
 
 
 def kernel_stats() -> Dict[str, int]:

@@ -14,7 +14,7 @@ Spec mini-language (CLI ``--policy`` flags, :func:`parse_policy`)::
     */attn/*=exact,*/layer_0/*=exact,@lm_head=exact,*=pc3_tr
 
 Each comma-separated rule is ``pattern=variant[:backend][:flash]`` (the
-``flash`` token opts attention-score sites into the fused Pallas kernel); a
+``flash`` token opts attention-score sites into the fused flash kernel); a
 trailing ``*=...`` rule (or the ``default=`` key) sets the fallback config.
 """
 from __future__ import annotations
@@ -157,8 +157,8 @@ def parse_config(spec: str) -> DaismConfig:
 
     ``exact`` -> the exact config; a trailing ``flash`` token sets
     ``attn_kernel='flash'`` so attention-score sites matched by the rule
-    dispatch to the fused Pallas flash-attention kernel (``exact:flash``
-    runs it with MXU contractions; ``pc3_tr:flash`` fuses the approximate
+    dispatch to the fused flash-attention kernel (``exact:flash`` runs it
+    with f32 contractions; ``pc3_tr:flash`` fuses the approximate
     products). Without it, attention-score sites stay on the exact jnp
     online-softmax path whatever the rule's numerics say.
     """

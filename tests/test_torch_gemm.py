@@ -151,8 +151,33 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_counts_nothing():
 
 
 def test_pallas_refuses_approx_backward():
+    """The JAX package's pallas backend refuses backward='approx' at
+    construction (its Pallas kernel has no backward); the port's config
+    accepts the pair (see the next test)."""
     with pytest.raises(ValueError, match="no approximate backward"):
-        DaismConfig(backend=Backend.PALLAS, backward="approx")
+        JConfig(backend=JBackend.PALLAS, backward="approx")
+    assert DaismConfig(backend=Backend.PALLAS, backward="approx").backward \
+        == "approx"
+
+
+def test_pallas_approx_backward_matches_jnp():
+    """The port's pallas backward GEMMs launch the same CUDA kernel on
+    transposed operands (on CPU tensors, the kernel's plain version); they
+    give the jnp backend's approximate gradients, up to f32 summation
+    order."""
+    a, w = _data(6, 40, 9, seed=5)
+    _, (ta, tw) = _bf16_pair(a, w)
+    g = torch.from_numpy(np.random.default_rng(6).normal(size=(6, 9)).astype(
+        np.float32))
+    grads = {}
+    for backend in (Backend.PALLAS, Backend.JNP):
+        cfg = DaismConfig(variant=Variant.PC3_TR, backend=backend,
+                          backward="approx")
+        x, y = ta.clone().requires_grad_(), tw.clone().requires_grad_()
+        (gemm.daism_matmul(x, y, cfg) * g).sum().backward()
+        grads[backend] = (x.grad.float(), y.grad.float())
+    for got, ref in zip(grads[Backend.PALLAS], grads[Backend.JNP]):
+        torch.testing.assert_close(got, ref, rtol=2**-8, atol=0)
 
 
 @pytest.mark.parametrize("backward", ["ste", "approx"])

@@ -28,6 +28,7 @@ from repro_torch.configs import get_config as tget  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.models.module import flatten  # noqa: E402
 from repro_torch.models.registry import build_model as tbuild  # noqa: E402
+from repro_torch.policy import dispatch  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -53,6 +54,7 @@ APPROX_REL = {
     ("paged_step", "*/attn/*=exact,*=pc3_tr"): 1e-4,       # 1.5e-5
 }
 BF16_REL = 0.11  # measured 0.0714 (0.234 on logits of 3.28)
+FLASH_BF16_REL = 0.1  # measured 0.0665 (``:flash`` attention, 24 tokens)
 
 
 @pytest.fixture(scope="module")
@@ -166,15 +168,38 @@ def test_bf16_pallas_matches_jax_jnp_backend(jax_params):
     toks = _tokens(2, 10, seed=2)
     ref, _ = jm.forward(jp, {"tokens": jnp.asarray(toks)})
     got, _ = tm.forward(tp, {"tokens": torch.from_numpy(toks).long()})
+    _check_bf16(ref, got, BF16_REL)
+
+
+def _check_bf16(ref, got, rel):
+    """bf16 logits within ``rel`` of max|ref|, and the greedy token equal on
+    every row whose top-2 gap exceeds that bound (a quarter of the rows at
+    least, so the check covers real rows)."""
     ref = np.asarray(ref, np.float32)
     assert got.dtype == torch.bfloat16 and tuple(got.shape) == ref.shape
     got = got.float().numpy()
-    bound = BF16_REL * np.abs(ref).max()
+    bound = rel * np.abs(ref).max()
     assert np.abs(got - ref).max() <= bound
     top2 = np.sort(ref, -1)[..., -2:]
     clear = top2[..., 1] - top2[..., 0] > bound
-    assert clear.sum() >= clear.size // 4  # the check covers real rows
+    assert clear.sum() >= clear.size // 4
     np.testing.assert_array_equal(got.argmax(-1)[clear], ref.argmax(-1)[clear])
+
+
+def test_bf16_flash_forward_matches_jax(jax_params):
+    """``*/attn/kernel=pc3_tr:flash,*=pc3_tr`` in bf16: every layer's
+    attention runs the approximate flash kernel (its plain version here, the
+    Pallas kernel interpreted in JAX) between approximate GEMMs. Bounded as
+    the bf16 case above, at about 1.5x its measured gap
+    (``FLASH_BF16_REL``)."""
+    spec = "*/attn/kernel=pc3_tr:flash,*=pc3_tr"
+    jm, jp, tm, tp = _models(spec, BF16, jax_params["bf16"])
+    toks = _tokens(2, 24, seed=2)
+    before = dispatch._STATS["attention_calls"]
+    ref, _ = jm.forward(jp, {"tokens": jnp.asarray(toks)})
+    got, _ = tm.forward(tp, {"tokens": torch.from_numpy(toks).long()})
+    assert dispatch._STATS["attention_calls"] == before + 2  # one per layer
+    _check_bf16(ref, got, FLASH_BF16_REL)
 
 
 def test_entry_points_default_to_the_card():

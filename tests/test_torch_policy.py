@@ -138,12 +138,36 @@ def test_validate_for_dtype_errors_match():
     assert str(terr.value) == str(jerr.value)
 
 
-def test_flash_rule_on_eligible_site_is_not_ported_yet():
-    cfg = tget("tinyllama_1_1b").smoke(n_layers=2, vocab=64).with_policy(
-        "*/attn/kernel=exact:flash,*=exact")
+def test_flash_rule_on_eligible_site_matches_jax_forward():
+    """``*/attn/kernel=exact:flash,*=exact`` routes every layer's attention
+    through the flash kernel (its plain version on CPU tensors; the Pallas
+    kernel interpreted in JAX) and matches the JAX forward on the same
+    weights in f32: rtol = atol = 1e-4, the bound of the exact policies in
+    tests/test_torch_model.py (only f32 rounding and summation order
+    differ), and identical greedy tokens."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from repro.models.registry import build_model as jbuild
+    from repro_torch.models.convert import params_from_jax
     from repro_torch.models.registry import build_model
 
+    spec = "*/attn/kernel=exact:flash,*=exact"
+    kw = dict(n_layers=2, vocab=64, param_dtype="float32",
+              compute_dtype="float32")
+    jm = jbuild(jget("tinyllama_1_1b").smoke(**kw).with_policy(spec))
+    jparams, _ = jm.init(jax.random.PRNGKey(0))
+    cfg = tget("tinyllama_1_1b").smoke(**kw).with_policy(spec)
     model = build_model(cfg, device="cpu")
-    params = model.init(0)
-    with pytest.raises(NotImplementedError, match="flash attention"):
-        model.forward(params, {"tokens": torch.zeros((1, 4), dtype=torch.long)})
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
+                             device="cpu")
+    toks = np.random.default_rng(3).integers(0, 64, size=(2, 20)).astype(
+        np.int32)
+    calls = TP.dispatch._STATS["attention_calls"]
+    got, _ = model.forward(params, {"tokens": torch.from_numpy(toks).long()})
+    assert TP.dispatch._STATS["attention_calls"] == calls + 2  # per layer
+    ref, _ = jm.forward(jparams, {"tokens": jnp.asarray(toks)})
+    ref = np.asarray(ref)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(got.numpy().argmax(-1), ref.argmax(-1))
