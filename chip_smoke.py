@@ -25,11 +25,21 @@ the kernels' times beside their bounds. Phases:
               KH=4), MHA and MQA, a ragged (B=2, Sq=100, Skv=72, H=4, KH=2)
               and f32 exact inputs, against the plain version (same KV tiles
               in the same order): exact within 2e-3 + 2e-2 |plain| (the JAX
-              suite's), approximate within 2**-6 |plain| + 1e-3 (see
-              FLASH_APPROX_TOL); (e) causally masked KV tiles are skipped
-              (poisoned keys past them change nothing); (f) one KV tile
-              against the reference's semantics oracle (DAISM products of
-              kernels/ref.py and a plain softmax), 2e-2 (the JAX suite's);
+              suite's) and, for bf16, also within one bf16 rounding
+              (2**-7 |plain| + 2**-16 max|v|, FLASH_EXACT_ULP),
+              approximate within 2**-6 |plain| + 1e-3 (see
+              FLASH_APPROX_TOL); bf16 exact runs the tensor-core kernel,
+              D = 40 covers its zero-padded head dim; (e) causally masked
+              KV tiles are skipped (poisoned keys past them change nothing);
+              (f) one KV tile against the reference's semantics oracle
+              (DAISM products of kernels/ref.py and a plain softmax), 2e-2
+              (the JAX suite's). daism_matmul again: (g) bit-identical to
+              daism_matmul_ordered (the kernel's own summation order) for
+              the six approximate variants on the tile path, the split-K
+              path and the default choice, at every decode shape (M in
+              {1, 4} x KN_SHAPES), M = 16 and 64 at (2048, 5632), the ragged
+              shapes and (128, 2048, 5632); (h) rows 0-3 of an M = 128
+              launch equal an M = 4 launch on the same rows, bit for bit;
 4. serve    — the engine serves 8 requests through the ``free`` and
               ``paid`` tiers; every request completes at its length, both
               groups run, the prefix cache hits, the kernel's launch count
@@ -37,22 +47,28 @@ the kernels' times beside their bounds. Phases:
               through the kernel agree with the plain (jnp-backend) path;
 5. prefill  — ``prefill_step`` at 22 layers, B=1, S=2048 under three
               policies (approximate flash, exact flash, jnp attention, all
-              with approximate GEMMs on the kernel) and an exact-GEMM pair;
-              flash launches 22 and the GEMM kernel its sites per forward;
+              with approximate GEMMs on the kernel) and an exact-GEMM pair
+              (timed twice: its first forward is the library GEMMs' first
+              use); flash launches 22 and the GEMM kernel its sites per
+              forward;
               exact flash agrees with jnp attention (bounds printed);
 6. train    — ``train_step`` at 22 layers, B=2, S=256: 3 steps with the
               straight-through backward, 1 with the approximate backward on
               the kernel; finite loss and grad norm, the kernel's launches
               per step as the sites imply; a ``:flash`` policy raises;
 7. numbers  — kernel / plain / library times (CUDA events) and the bound
-              at each shape, the serve report, prefill and step times. The
+              at each shape, both GEMM paths timed at M = 1 to 128 (the
+              split-K threshold's evidence) with the decode step's GEMM
+              total, the serve report, prefill and step times. The
               outputs of the timed calls are held against each other at the
               main paths' own shapes: daism_matmul at the prefill GEMMs
               (M = 2048) and every train-step GEMM (forward and approximate
               backward, K up to 32000) within the (b) bound; flash at
               TinyLlama's heads, S = 2048, for all seven variants within the
-              (d) bounds, with controls that must break the approximate
-              bound (the exact and FLA kernels against the PC3_TR plain).
+              (d) bounds, with controls that must break them: the exact and
+              FLA kernels against the PC3_TR plain break the approximate
+              bound, and exact attention with one bf16 p (no p_lo) breaks
+              the one-ulp bound.
 
 Every check raises on failure and nothing is caught (checks 3c and 6 expect
 their errors), so any failure exits non-zero before the final line. TF32 is
@@ -91,9 +107,9 @@ OPS_PER_MAC = {"fla": 8 + 13, "hla": 8 + 1 + 13, "pc2": 1 + 6 + 13,
 
 KN_SHAPES = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048),
              (2048, 32000)]
-# M rows of one GEMM: 4 at decode (num_slots=4), 128 at a prefill step
-# (num_slots x prefill_chunk = 4 x 32, two M tiles), 64 one full tile
-M_SHAPES = [4, 64, 128]
+# M rows of one GEMM: 1 and 4 at decode (one active request, num_slots=4),
+# 128 at a prefill step (num_slots x prefill_chunk = 4 x 32), 64 between
+M_SHAPES = [1, 4, 64, 128]
 RAGGED_SHAPES = [(5, 70, 33), (130, 300, 130)]
 # the train step's GEMMs at B x S = 512 tokens, (M, K, N): the wi/wg
 # forward, its two approximate-backward GEMMs (da = g @ w^T, dw = a^T @ g),
@@ -104,6 +120,18 @@ TRAIN_GEMM_SHAPES = [(512, 2048, 5632), (512, 5632, 2048), (2048, 512, 5632),
 # the prefill step's GEMMs at B x S = 2048 tokens
 PREFILL_GEMM_SHAPES = [(2048, k, n) for k, n in KN_SHAPES]
 REPRESENTATIVE = ("pc3_tr", 4, 2048, 5632)  # decode-time wi/wg GEMM
+# (M, K, N) sites of one decode step and their launches a step by tier
+# (22 layers: q, o, k, v, wi and wg twice a layer, ffn/wo once, lm_head once;
+# the paid tier runs attention's q/k/v/o exact, outside the kernel)
+DECODE_SITES = {(2048, 2048): (44, 0), (2048, 256): (44, 0),
+                (2048, 5632): (44, 44), (5632, 2048): (22, 22),
+                (2048, 32000): (1, 1)}
+# both GEMM paths timed here: every decode shape, and the M = 16 to 128
+# rows of the path threshold (csrc/daism_matmul.cu, kernels/daism_matmul.py)
+PATH_SHAPES = ([(m, k, n) for m in (1, 4) for k, n in KN_SHAPES]
+               + [(m, 2048, 5632) for m in (16, 64, 128)]
+               + [(64, 2048, 32000), (128, 2048, 32000), (128, 5632, 2048),
+                  (128, 2048, 256)])
 TIERS = (("free", "*=pc3_tr:pallas"),
          ("paid", "*/attn/*=exact,*=pc3_tr:pallas"))
 
@@ -114,10 +142,20 @@ FLASH_CHECK_SHAPES = [
     (2, 512, 512, 4, 4, 128),   # MHA, D = 128, four KV tiles
     (2, 384, 384, 4, 1, 32),    # MQA, three KV tiles
     (1, 200, 200, 8, 2, 16),    # D = 16, ragged
+    (1, 256, 256, 4, 2, 40),    # D = 40: padded to 48 with zeros
 ]
 FLASH_RAGGED = (2, 100, 72, 4, 2, 64)      # non-causal, both lengths ragged
 FLASH_TIMED = (1, 2048, 2048, 32, 4, 64)   # TinyLlama's heads at S = 2048
 FLASH_EXACT_TOL = (2e-3, 2e-2)             # atol, rtol (the JAX suite's)
+# bf16 exact kernel vs plain: the plain version multiplies an f32 p, the
+# tensor-core kernel p_hi + p_lo, which is p to 2**-16 of itself (each bf16
+# rounding is within 2**-8), with exact bf16 products summed in f32. So an
+# output's f32 value moves by at most ~2**-16 sum(p |v|) / l <= 2**-16
+# max|v|, and the bf16 outputs stay one rounding apart: 2**-7 |plain| +
+# 2**-16 max|v|. The absolute term matters only where the output cancels
+# to near 0 (the card showed 1.4e-6 there, over a 1e-6 floor). One bf16 p
+# (2**-8 of p) breaks the bound: phase 7's control.
+FLASH_EXACT_ULP = (2.0**-16, 2.0**-7)      # atol per max|v|, rtol
 # kernel vs plain, approximate, any number of KV tiles: (atol, rtol). Both
 # run the same KV tiles in the same order with the same rounding points
 # (RNE bf16 p, expf); only the f32 summation order inside the QK dot
@@ -342,10 +380,21 @@ def flash_excess(got, ref, variant, oracle=False):
     return err.max().item(), excess, f"{atol:g} + {rtol:.4g} |ref|"
 
 
-def _flash_held(got, ref, variant, what, errs, oracle=False):
+def ulp_excess(got, ref, v):
+    """The largest excess of |got - ref| over FLASH_EXACT_ULP's bound for
+    attention over values ``v``."""
+    atol, rtol = FLASH_EXACT_ULP
+    atol *= v.float().abs().max().item()
+    return ((got.float() - ref.float()).abs()
+            - (atol + rtol * ref.float().abs())).max().item()
+
+
+def _flash_held(got, ref, variant, what, errs, oracle=False, v=None):
     """Hold a kernel output against its reference; record the largest
-    error under ``errs['exact' | 'approx']`` and, for approximate variants,
-    the largest excess over two bf16 ulps (2**-6 |ref|) under
+    error under ``errs['exact' | 'approx']``; for bf16 exact, hold it also
+    to FLASH_EXACT_ULP over the values ``v`` and record the largest excess
+    over that under ``errs['exact_over_1ulp']``; for approximate variants,
+    record the largest excess over two bf16 ulps (2**-6 |ref|) under
     ``errs['approx_over_2ulp']``."""
     import torch
 
@@ -355,6 +404,13 @@ def _flash_held(got, ref, variant, what, errs, oracle=False):
                          f"by {excess:.3g} (or is not finite)")
     key = "oracle" if oracle else "exact" if variant is None else "approx"
     errs[key] = max(errs[key], err)
+    if variant is None and not oracle and got.dtype == torch.bfloat16:
+        over = ulp_excess(got, ref, v)
+        if over > 0:
+            raise SystemExit(f"flash {what}: bf16 exact |kernel - plain| "
+                             f"exceeds 2**-16 max|v| + 2**-7 |plain| by "
+                             f"{over:.3g}")
+        errs["exact_over_1ulp"] = max(errs["exact_over_1ulp"], over)
     if variant is not None and not oracle:
         over = ((got.float() - ref.float()).abs()
                 - 2.0**-6 * ref.float().abs()).max().item()
@@ -397,8 +453,8 @@ def check_flash(device):
 
     gen = torch.Generator(device=device).manual_seed(3)
     variants = [None] + [v for v in Variant if v is not Variant.EXACT]
-    errs = {"exact": 0.0, "approx": 0.0, "approx_over_2ulp": -1.0,
-            "oracle": 0.0}
+    errs = {"exact": 0.0, "exact_over_1ulp": -1.0, "approx": 0.0,
+            "approx_over_2ulp": -1.0, "oracle": 0.0}
     n = 0
     for shape in FLASH_CHECK_SHAPES:
         q, k, v = _bhsd_inputs(gen, device, *shape)
@@ -410,7 +466,7 @@ def check_flash(device):
                                                     variant=var)
                 torch.cuda.synchronize()
                 _flash_held(got, ref, var, f"{shape} causal={causal} "
-                            f"{var or 'exact'}", errs)
+                            f"{var or 'exact'}", errs, v=v)
                 n += 1
     q, k, v = _bhsd_inputs(gen, device, *FLASH_RAGGED)
     for var in variants:  # the dispatching entry point, as the model calls it
@@ -420,7 +476,7 @@ def check_flash(device):
         if got.shape != q.shape:
             raise SystemExit(f"ragged flash output shaped {tuple(got.shape)}")
         _flash_held(got, ref, var, f"ragged {FLASH_RAGGED} {var or 'exact'}",
-                    errs)
+                    errs, v=v)
         n += 1
     q, k, v = _bhsd_inputs(gen, device, 1, 256, 256, 4, 2, 64, torch.float32)
     for causal in (True, False):
@@ -429,10 +485,13 @@ def check_flash(device):
         torch.cuda.synchronize()
         _flash_held(got, ref, None, f"f32 causal={causal}", errs)
         n += 1
-    log(f"  (d) flash_attention: {n} cases (7 variants x D in 16..128, causal "
-        f"and not, GQA / MHA / MQA, ragged, f32) within the bounds; max "
+    log(f"  (d) flash_attention: {n} cases (7 variants x D in 16..128 and "
+        f"40, causal and not, GQA / MHA / MQA, ragged, f32) within the "
+        f"bounds; max "
         f"|kernel - plain| exact {errs['exact']:.4g} (bound "
-        f"{FLASH_EXACT_TOL[0]:g} + {FLASH_EXACT_TOL[1]:g} |plain|), "
+        f"{FLASH_EXACT_TOL[0]:g} + {FLASH_EXACT_TOL[1]:g} |plain|; bf16 "
+        f"largest excess over 2**-16 max|v| + 2**-7 |plain| "
+        f"{errs['exact_over_1ulp']:.4g}), "
         f"approximate {errs['approx']:.4g} (bound {FLASH_APPROX_TOL[0]:g} + "
         f"2**-6 |plain|; largest excess over 2**-6 |plain| "
         f"{errs['approx_over_2ulp']:.4g})")
@@ -469,6 +528,56 @@ def check_flash(device):
         f"not): max |kernel - oracle| {errs['oracle']:.4g} <= "
         f"{FLASH_ORACLE_ATOL:g}")
     return errs
+
+
+def check_order(device):
+    """Phase 3 (g)-(h): the GEMM kernel against daism_matmul_ordered, bit
+    for bit, on both paths; rows independent of M."""
+    import torch
+
+    from repro_torch.core.config import Variant
+    from repro_torch.kernels import daism_matmul as dm
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    approx = [v for v in Variant if v is not Variant.EXACT]
+    shapes = [(m, k, n) for m in (1, 4) for k, n in KN_SHAPES]
+    shapes += [(16, 2048, 5632), (64, 2048, 5632)] + RAGGED_SHAPES
+    shapes += [(128, 2048, 5632)]
+    n = 0
+    for m, k, nn in shapes:
+        a = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+        w = torch.randn((k, nn), generator=gen, device=device).to(torch.bfloat16)
+        for v in approx:
+            ref = dm.daism_matmul_ordered(a, w, v).view(torch.int32)
+            for path in ("tile", "splitk", None):
+                got = dm._launch(a, w, v, path)
+                torch.cuda.synchronize()
+                if not torch.equal(got.view(torch.int32), ref):
+                    bad = int((got.view(torch.int32) != ref).sum())
+                    raise SystemExit(
+                        f"daism_matmul {v.value} ({m},{k},{nn}) path "
+                        f"{path or 'default'}: {bad} of {ref.numel()} outputs "
+                        "differ from daism_matmul_ordered")
+            n += 1
+    log(f"  (g) {n} cases ({len(shapes)} shapes x {len(approx)} variants): "
+        "tile, split-K and default paths bit-identical to "
+        "daism_matmul_ordered")
+
+    for k, nn in ((2048, 5632), (2048, 32000)):
+        a = torch.randn((128, k), generator=gen, device=device).to(
+            torch.bfloat16)
+        w = torch.randn((k, nn), generator=gen, device=device).to(
+            torch.bfloat16)
+        for v in approx:
+            big = dm.daism_matmul_kernel(a, w, v)
+            small = dm.daism_matmul_kernel(a[:4].contiguous(), w, v)
+            torch.cuda.synchronize()
+            if not torch.equal(big[:4].view(torch.int32),
+                               small.view(torch.int32)):
+                raise SystemExit(f"daism_matmul {v.value} ({k},{nn}): rows "
+                                 "0-3 of M = 128 differ from M = 4")
+    log("  (h) rows 0-3 of M = 128 launches equal M = 4 launches bit for bit "
+        "at (2048, 5632) and (2048, 32000), six variants")
 
 
 # ---------------------------------------------------------------------------
@@ -665,6 +774,17 @@ def prefill(device, cfg):
         log(f"  {label:27s} {sec * 1e3:9.1f} ms  {PREFILL_SEQ / sec:8.1f} "
             f"tok/s  launches: flash {flash_n}, daism_matmul {gemm_n}")
     flash_launches, gemm_launches = fa.launches, dm.launches
+    # the exact-GEMM pair again: its first forward carries the first use of
+    # the bf16 library GEMMs at these shapes
+    for label, spec in PREFILL_POLICIES:
+        if "*=exact" not in spec:
+            continue
+        t0 = time.perf_counter()
+        arts[label].prefill_step(params, batch)
+        _sync(device)
+        sec = time.perf_counter() - t0
+        results[label].update(warm_ms=sec * 1e3)
+        log(f"  {label:27s} {sec * 1e3:9.1f} ms  (second forward)")
 
     for (a, b), lim in ((("flash exact, exact GEMMs",
                           "jnp attention, exact GEMMs"), PREFILL_EXACT_REL),
@@ -768,20 +888,19 @@ def measure(device, variants):
 
     gen = torch.Generator(device=device).manual_seed(2)
     rows = []
-    # (M, K, N, variants, plain version's reps): the prefill and train
-    # shapes are larger and take their plain time from one call
-    cases = [(m, k, n, variants, 2) for k, n in KN_SHAPES for m in M_SHAPES]
-    cases += [(m, k, n, ["pc3_tr", "exact"], 1)
+    # (M, K, N, variants): the plain version's time is one call (it is a
+    # yardstick of the arithmetic, not of speed)
+    cases = [(m, k, n, variants) for k, n in KN_SHAPES for m in M_SHAPES]
+    cases += [(m, k, n, ["pc3_tr", "exact"])
               for m, k, n in PREFILL_GEMM_SHAPES + TRAIN_GEMM_SHAPES]
     max_err = 0.0
-    for m, k, n, case_variants, plain_reps in cases:
+    for m, k, n, case_variants in cases:
         w = torch.randn((k, n), generator=gen, device=device).to(torch.bfloat16)
         a = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
         for v in case_variants:
             ms, got = cuda_time_ms(lambda: dm.daism_matmul_kernel(a, w, v), 10)
             plain_ms, ref = cuda_time_ms(
-                lambda: dm.daism_matmul_plain(a, w, v), plain_reps,
-                warmup=plain_reps - 1)
+                lambda: dm.daism_matmul_plain(a, w, v), 1, warmup=0)
             err, rel = gemm_held(got, ref, a, w, f"{v} ({m},{k},{n})")
             max_err = max(max_err, err)
             del got, ref
@@ -806,12 +925,81 @@ def measure(device, variants):
     return rows, max_err
 
 
+def default_path(m, k, n):
+    """The path a PC3_TR (M, K) @ (K, N) call takes by default."""
+    from repro_torch.kernels import daism_matmul as dm
+
+    return "tile" if dm._plan(m, k, n, "pc3_tr") is None else "splitk"
+
+
+def measure_paths(device):
+    """Both GEMM paths timed at PATH_SHAPES (PC3_TR), each output held
+    against the other bit for bit; returns {(m, k, n): {path: ms}}."""
+    import torch
+
+    from repro_torch.kernels import daism_matmul as dm
+
+    gen = torch.Generator(device=device).manual_seed(6)
+    times = {}
+    for m, k, n in PATH_SHAPES:
+        a = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+        w = torch.randn((k, n), generator=gen, device=device).to(torch.bfloat16)
+        row, outs = {}, {}
+        for path in ("tile", "splitk"):
+            row[path], outs[path] = cuda_time_ms(
+                lambda: dm._launch(a, w, "pc3_tr", path), 10)
+        if not torch.equal(outs["tile"].view(torch.int32),
+                           outs["splitk"].view(torch.int32)):
+            raise SystemExit(f"({m},{k},{n}): the two paths differ")
+        default = default_path(m, k, n)
+        b_ms = bound("pc3_tr", m, k, n)[0]
+        times[(m, k, n)] = row
+        log(f"  pc3_tr M={m:4d} K={k:5d} N={n:6d}  tile {row['tile']:9.4f} ms"
+            f"  split-K {row['splitk']:9.4f} ms  bound {b_ms:.4f} ms  "
+            f"default {default} ({b_ms / row[default] * 100:.1f}% of bound)")
+        del a, w, outs
+    for tier, col in (("free", 0), ("paid", 1)):
+        for m in (1, 4):
+            new = sum(DECODE_SITES[kn][col]
+                      * times[(m, *kn)][default_path(m, *kn)]
+                      for kn in DECODE_SITES)
+            old = sum(DECODE_SITES[kn][col] * times[(m, *kn)]["tile"]
+                      for kn in DECODE_SITES)
+            b = sum(DECODE_SITES[kn][col] * bound("pc3_tr", m, *kn)[0]
+                    for kn in DECODE_SITES)
+            log(f"  decode-step GEMM total, {tier} tier, M={m}: "
+                f"{new:.3f} ms on the default paths (tile path alone "
+                f"{old:.3f} ms; bound {b:.3f} ms)")
+    _free(device)
+    return times
+
+
+def flash_one_bf16_p(q, k, v):
+    """The control of the one-ulp bound: causal exact attention on (B, S,
+    H, D) bf16 in f32, but with p rounded once to bf16 before PV (the design
+    flash_fwd_tc's split p avoids); bf16 out."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    s, h, d = q.shape[1:]
+    qf, kf, vf = (t.repeat_interleave(h // t.shape[2], dim=2).transpose(
+        1, 2).float() for t in (q, k, v))
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    sc = torch.where(mask, (qf @ kf.transpose(-1, -2)) * fa._scale(d), -1e30)
+    p = torch.where(mask, torch.exp(sc - sc.amax(-1, keepdim=True)), 0.0)
+    del sc
+    o = (p.to(torch.bfloat16).float() @ vf) / p.sum(-1, keepdim=True)
+    return o.to(torch.bfloat16).transpose(1, 2)
+
+
 def measure_flash(device):
     """Kernel / plain / SDPA times at TinyLlama's heads, S = 2048, causal;
     each timed kernel output is held against the timed plain output (phase
     3's bounds), and the exact and FLA kernels against the PC3_TR plain
-    output must break the approximate bound (a control: the bound tells
-    another function apart). Returns (rows, max |kernel - plain|)."""
+    output must break the approximate bound, and exact attention with one
+    bf16 p the one-rounding bound (controls: each bound tells another
+    function apart). Returns (rows, max |kernel - plain|)."""
     import torch
     import torch.nn.functional as F
 
@@ -825,7 +1013,8 @@ def measure_flash(device):
     qs, ks, vs = (t.repeat_interleave(h // t.shape[2], dim=2).transpose(1, 2)
                   for t in (q, k, v))
     rows, outs, plains = [], {}, {}
-    errs = {"exact": 0.0, "approx": 0.0, "approx_over_2ulp": -1.0}
+    errs = {"exact": 0.0, "exact_over_1ulp": -1.0, "approx": 0.0,
+            "approx_over_2ulp": -1.0}
     for var in [None] + [x for x in Variant if x is not Variant.EXACT]:
         name = var.value if var else "exact"
         ms, outs[name] = cuda_time_ms(lambda: fa.flash_attention_bhsd_kernel(
@@ -834,7 +1023,7 @@ def measure_flash(device):
             lambda: fa.flash_attention_bhsd_plain(q, k, v, variant=var), 1,
             warmup=0)
         _flash_held(outs[name], plains[name], var,
-                    f"{FLASH_TIMED} causal {name}", errs)
+                    f"{FLASH_TIMED} causal {name}", errs, v=v)
         err = (outs[name].float() - plains[name].float()).abs().max().item()
         lib_ms = None
         if var is None:
@@ -850,7 +1039,9 @@ def measure_flash(device):
             f"{lib:>8s} ms  bound {b_ms:.4f} ms ({b_by}, {ops:.3e} ops)  "
             f"{b_ms / ms * 100:5.1f}% of bound  |kernel - plain| {err:.4g}")
     log(f"  flash at {FLASH_TIMED}: all 7 variants within the bounds; max "
-        f"|kernel - plain| exact {errs['exact']:.4g}, approximate "
+        f"|kernel - plain| exact {errs['exact']:.4g} (largest excess over "
+        f"2**-16 max|v| + 2**-7 |plain| {errs['exact_over_1ulp']:.4g}), "
+        f"approximate "
         f"{errs['approx']:.4g} (largest excess over 2**-6 |plain| "
         f"{errs['approx_over_2ulp']:.4g}, allowed {FLASH_APPROX_TOL[0]:g})")
     for other in ("exact", "fla"):
@@ -863,6 +1054,14 @@ def measure_flash(device):
                              "passes the approximate bound against the "
                              "pc3_tr plain version; the bound cannot tell "
                              "the two functions apart")
+    one_p = flash_one_bf16_p(q, k, v)
+    over = ulp_excess(one_p, plains["exact"], v)
+    log(f"  control: exact attention with one bf16 p vs the exact plain: "
+        f"exceeds 2**-16 max|v| + 2**-7 |plain| by {over:.4g}")
+    if over <= 0:
+        raise SystemExit("flash control: one bf16 p passes the one-ulp bound "
+                         "against the exact plain version; the bound cannot "
+                         "tell it from the kernel's split p")
     return rows, max(errs["exact"], errs["approx"])
 
 
@@ -920,6 +1119,7 @@ def main(argv=None) -> int:
     log("== 3. kernels vs plain versions ==")
     max_err = check_kernel(device)
     flash_errs = check_flash(device)
+    check_order(device)
 
     cfg = get_config("tinyllama_1_1b")
     if args.layers != cfg.n_layers:
@@ -939,12 +1139,15 @@ def main(argv=None) -> int:
 
     log("== 7. numbers ==")
     rows, gemm_err = measure(device, [v.value for v in Variant])
+    path_ms = measure_paths(device)
     frows, flash_err = measure_flash(device)
     log("  serve: " + report.summary().replace("\n", "\n  serve: "))
     for label, r in pre.items():
         if "ms" in r:
+            warm = (f" (second forward {r['warm_ms']:.1f} ms)"
+                    if "warm_ms" in r else "")
             log(f"  prefill {label}: {r['ms']:.1f} ms per forward, "
-                f"{r['tok_s']:.1f} tok/s")
+                f"{r['tok_s']:.1f} tok/s{warm}")
     for i, st in enumerate(steps):
         log(f"  train step {i + 1} ({st['backward']}): {st['ms']:.1f} ms")
     rep = next(r for r in rows if (r["variant"], r["m"], r["k"], r["n"])
@@ -964,6 +1167,7 @@ def main(argv=None) -> int:
         "library_ms": rep["library_ms"],
         "variant": rep["variant"],
         "shape": [rep["m"], rep["k"], rep["n"]],
+        "tile_path_ms": path_ms[REPRESENTATIVE[1:]]["tile"],
     }, {
         "name": "flash_attention",
         "route": "cuda",

@@ -4,9 +4,17 @@
 // Replaces the Pallas TPU kernel repro/kernels/daism_matmul.py::_kernel
 // (entry daism_matmul_kernel, wrapper repro/kernels/ops.py::
 // daism_matmul_pallas). Per-element products are bit-identical to
-// repro_torch/core/floatmul.py (see approx_product.cuh); the sum runs in
-// f32 in ascending k order per output, with no atomics, so results are
-// deterministic and do not depend on the other rows of the batch.
+// repro_torch/core/floatmul.py (see approx_product.cuh).
+//
+// Summation order (part of the function, the same on every path and at
+// every M). K is cut into chunks of kKc = 64 columns; each output is
+//   total = 0; for each chunk c ascending:
+//     part = 0; for k in c ascending: part += approx(a[m, k] * w[k, n]);
+//     total += part
+// in f32 with no atomics, as kernels/daism_matmul.py::daism_matmul_ordered
+// spells it. A row's bits then depend only on that row of `a` and on `w`,
+// never on M or on the other rows, so a decode step gives the same tokens
+// whatever the batch (and whichever path below it takes).
 //
 // What bounds it. Every approximate MAC is a chain of integer operations on
 // the SM's INT32 lanes (no tensor core computes an OR of shifted partial
@@ -15,24 +23,42 @@
 // IMAD for the head line, five AND/OR line selects, the truncation mask,
 // the top-bit normalization (3), the exponent add, the sign XOR and about
 // seven operations to compose the f32 bits; FLA and HLA need 8 line
-// selects. (The TPU kernel's own count, about 24 vector ops per MAC, is the
-// same chain on a VPU.) At 64 INT32 lanes per SM that is far above the
-// memory bound: a (64, 2048) x (2048, 2048) product moves 8.7 MB but issues
-// about 5.6e9 integer operations. At decode (M <= 64) one M tile covers the
-// whole batch, so each weight byte is read from device memory about once.
+// selects. At 64 INT32 lanes per SM that is far above the memory bound at
+// every M the model sends: a (4, 2048) x (2048, 5632) decode product moves
+// 23 MB (7 us) but issues ~0.9e9 integer operations (55 us). The bound is
+// reached only when all 132 SMs run enough independent MAC chains.
 //
-// Design (simple and correct first):
-//   * one 64 x 64 output tile per block, 256 threads, 4 x 4 outputs per
-//     thread (rows ty + 16 i, columns tx + 16 j: neighbouring threads take
-//     neighbouring columns, so shared-memory reads do not conflict);
-//   * K in steps of 16: each step loads the a and w tiles and decomposes
-//     every element once into shared memory (sign, exponent, mantissa; for
+// Two paths, one function (the wrapper's _plan picks the path, and the
+// split-K path's row tile and columns a thread, by shape; the bits do not
+// change):
+//   * the tile path (large M): one 64 x 64 output tile per block, 256
+//     threads, 4 x 4 outputs per thread (rows ty + 16 i, columns tx + 16 j:
+//     neighbouring threads take neighbouring columns, so shared-memory reads
+//     do not conflict); K in steps of 16, each step's a and w tiles
+//     decomposed once into shared memory (sign, exponent, mantissa; for
 //     PC2/PC3 also the multiplier's head weight and low-line mask), so the
-//     decomposition is spread over the 64 products each element enters;
-//   * ragged M/N/K edges load as raw zeros, whose zero mantissa gives a zero
-//     product, so the wrapper pads nothing; rows past M are not computed;
-//   * EXACT is an f32 multiply-add of the bf16 values on the same tiling
-//     (bf16 products are exact in f32).
+//     decomposition is spread over the 64 products each element enters; the
+//     4 x 4 register accumulator holds the chunk's part and each thread's
+//     total sits in shared memory (so the order costs no registers);
+//   * the split-K path (decode, small M or a small tile grid): at M = 4 the
+//     tile grid is N / 64 blocks, each walking all of K with 4 of its 64
+//     rows real, so it leaves most SMs idle and most lanes multiplying
+//     zeros. Here a block of 128 threads owns 128 NC columns, one K chunk
+//     and a tile of MR rows: grid (ceil(N / 128 NC), K / kKc, ceil(M / MR)).
+//     Only real rows are decomposed (their chunk fields go once into shared
+//     memory, read as one broadcast 16-byte word per row and k); each thread
+//     owns NC neighbouring columns of the MR rows (NC = 4, loaded as one
+//     8-byte word, where the grid is large; NC = 1 for the narrower GEMMs,
+//     which then get 4x the threads; MR = 1, 4 or 16 by M, and MR = 1 for
+//     the narrowest, k/v at decode, so each row has its own blocks); each
+//     w element is decomposed once per row tile; each block writes its
+//     chunk's part to an f32 workspace [chunks, M, N], and a second kernel
+//     adds the parts in ascending chunk order from 0.0;
+//   * ragged M/N/K edges load as raw zeros, whose zero mantissa gives a
+//     zero product (which leaves a part's value alone), so the wrapper pads
+//     nothing; rows past M are not computed;
+//   * EXACT is an f32 multiply-add of the bf16 values on the tile path's
+//     tiling (bf16 products are exact in f32), in plain ascending k order.
 // Packing the fields, a 128 x 128 mantissa-product table in shared memory
 // and persistent tiles are left for later.
 
@@ -51,6 +77,19 @@ constexpr int kBK = 16;
 constexpr int kThreads = 256;
 constexpr int kSub = 4;  // outputs per thread along m and along n
 
+// K chunk of the summation order: part of the function (a multiple of kBK;
+// kernels/daism_matmul.py KC holds the same value). DAISM_KC builds another
+// chunk only for tools/gemm_kc_sweep.py, which measured the choice.
+#ifndef DAISM_KC
+#define DAISM_KC 64
+#endif
+constexpr int kKc = DAISM_KC;
+static_assert(kKc % kBK == 0, "a chunk is a whole number of K steps");
+
+// split-K path
+constexpr int kSkThreads = 128;
+constexpr int kSkMaxRows = 16;  // rows per block (grid z)
+
 template <int V>
 __global__ void __launch_bounds__(kThreads)
     daism_matmul_approx(const uint16_t* __restrict__ a,
@@ -65,6 +104,9 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ int w_man[kBK][kBN];
   __shared__ int w_exp[kBK][kBN];
   __shared__ uint32_t w_sign[kBK][kBN];
+  // each thread's total over the finished chunks (in shared memory, so the
+  // chunk order costs no registers in the MAC loop)
+  __shared__ float total[kSub * kSub][kThreads];
 
   const int tid = threadIdx.x;
   const int tx = tid % 16;
@@ -76,11 +118,14 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int i = 0; i < kSub; ++i) rows += (m0 + ty + 16 * i < M);
 
-  float acc[kSub][kSub];
+  float part[kSub][kSub];  // the current chunk's part
 #pragma unroll
   for (int i = 0; i < kSub; ++i)
 #pragma unroll
-    for (int j = 0; j < kSub; ++j) acc[i][j] = 0.0f;
+    for (int j = 0; j < kSub; ++j) {
+      part[i][j] = 0.0f;
+      total[i * kSub + j][tid] = 0.0f;
+    }
 
   for (int k0 = 0; k0 < K; k0 += kBK) {
 #pragma unroll
@@ -131,9 +176,20 @@ __global__ void __launch_bounds__(kThreads)
                                     x_exp[kk][mm], x_sign[kk][mm]};
 #pragma unroll
             for (int j = 0; j < kSub; ++j)
-              acc[i][j] += daism::approx_product<V>(xf, wf[j]);
+              part[i][j] += daism::approx_product<V>(xf, wf[j]);
           }
         }
+      }
+      // the chunk ends here (or K does): fold its part into the total
+      if ((k0 + kBK) % kKc == 0 || k0 + kBK >= K) {
+#pragma unroll
+        for (int i = 0; i < kSub; ++i)
+#pragma unroll
+          for (int j = 0; j < kSub; ++j) {
+            float& t = total[i * kSub + j][tid];
+            t = __fadd_rn(t, part[i][j]);
+            part[i][j] = 0.0f;
+          }
       }
     }
     __syncthreads();
@@ -146,9 +202,149 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < kSub; ++j) {
       const int gn = n0 + tx + 16 * j;
-      if (gn < N) out[static_cast<size_t>(gm) * N + gn] = acc[i][j];
+      if (gn < N)
+        out[static_cast<size_t>(gm) * N + gn] = total[i * kSub + j][tid];
     }
   }
+}
+
+// w[k, n0 .. n0 + NC - 1] as NC bf16 bit patterns (zeros past N). `vec`:
+// they are one aligned 2 NC-byte word (N % NC == 0 and w aligned).
+template <int NC>
+__device__ __forceinline__ void load_w(uint16_t (&e)[NC],
+                                       const uint16_t* __restrict__ w, int k,
+                                       int n0, int N, bool vec) {
+  const uint16_t* row = w + static_cast<size_t>(k) * N + n0;
+  if constexpr (NC == 4) {
+    if (vec) {
+      const uint2 x = __ldg(reinterpret_cast<const uint2*>(row));
+      e[0] = x.x & 0xFFFFu;
+      e[1] = x.x >> 16;
+      e[2] = x.y & 0xFFFFu;
+      e[3] = x.y >> 16;
+      return;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NC; ++j) e[j] = n0 + j < N ? __ldg(row + j) : 0;
+}
+
+// Split-K path: one block per (128 NC columns, one K chunk, up to MR rows).
+// Writes the chunk's part per output: to ws[chunk][m][n], or, when K is a
+// single chunk, the total 0 + part straight to out.
+template <int V, int MR, int NC>
+__global__ void __launch_bounds__(kSkThreads)
+    daism_matmul_splitk(const uint16_t* __restrict__ a,
+                        const uint16_t* __restrict__ w,
+                        float* __restrict__ dst, int M, int K, int N,
+                        int direct, int w_vec) {
+  // the chunk's multiplier fields {lines, head, exp, sign} per (row, k),
+  // [MR][kKc] (dynamic: past 48 KB at 16 rows once kKc > 192)
+  extern __shared__ int4 xs[];
+
+  const int tid = threadIdx.x;
+  const int chunk = blockIdx.y;
+  const int kb = chunk * kKc;
+  const int kn = min(kKc, K - kb);
+  const int m0 = blockIdx.z * MR;
+  const int rows = min(MR, M - m0);
+  const int n0 = (blockIdx.x * kSkThreads + tid) * NC;
+
+  for (int idx = tid; idx < MR * kKc; idx += kSkThreads) {
+    const int r = idx / kKc;
+    const int kk = idx % kKc;
+    const uint16_t bits =
+        (r < rows && kk < kn)
+            ? a[static_cast<size_t>(m0 + r) * K + kb + kk] : 0;
+    const daism::XFields f = daism::decompose_x<V>(bits);
+    xs[r * kKc + kk] =
+        make_int4(f.lines, f.head, f.exp, static_cast<int>(f.sign));
+  }
+  __syncthreads();
+  if (n0 >= N) return;  // no barrier follows
+  const bool vec = w_vec && n0 + NC <= N;
+
+  float part[MR][NC];
+#pragma unroll
+  for (int i = 0; i < MR; ++i)
+#pragma unroll
+    for (int j = 0; j < NC; ++j) part[i][j] = 0.0f;
+
+  // w rows are loaded kAhead ahead of their use
+  constexpr int kAhead = 4;
+  uint16_t cur[kAhead][NC];
+#pragma unroll
+  for (int u = 0; u < kAhead; ++u) {
+    if (u < kn) {
+      load_w<NC>(cur[u], w, kb + u, n0, N, vec);
+    } else {
+#pragma unroll
+      for (int j = 0; j < NC; ++j) cur[u][j] = 0;
+    }
+  }
+
+  for (int k0 = 0; k0 < kn; k0 += kAhead) {
+    uint16_t nxt[kAhead][NC];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const int kk = k0 + kAhead + u;
+      if (kk < kn) {
+        load_w<NC>(nxt[u], w, kb + kk, n0, N, vec);
+      } else {
+#pragma unroll
+        for (int j = 0; j < NC; ++j) nxt[u][j] = 0;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const int kk = k0 + u;
+      if (kk >= kn) break;
+      daism::WFields wf[NC];
+#pragma unroll
+      for (int j = 0; j < NC; ++j) wf[j] = daism::decompose_w(cur[u][j]);
+#pragma unroll
+      for (int i = 0; i < MR; ++i) {
+        if (i < rows) {
+          const int4 xv = xs[i * kKc + kk];
+          const daism::XFields xf{xv.x, xv.y, xv.z,
+                                  static_cast<uint32_t>(xv.w)};
+#pragma unroll
+          for (int j = 0; j < NC; ++j)
+            part[i][j] += daism::approx_product<V>(xf, wf[j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u)
+#pragma unroll
+      for (int j = 0; j < NC; ++j) cur[u][j] = nxt[u][j];
+  }
+
+#pragma unroll
+  for (int i = 0; i < MR; ++i) {
+    if (i >= rows) continue;
+    const size_t row = direct ? static_cast<size_t>(m0 + i)
+                              : static_cast<size_t>(chunk) * M + m0 + i;
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      if (n0 + j >= N) continue;
+      dst[row * N + n0 + j] = direct ? __fadd_rn(0.0f, part[i][j])
+                                     : part[i][j];
+    }
+  }
+}
+
+// The split-K second pass: out[i] = 0 + ws[0][i] + ws[1][i] + ..., in
+// ascending chunk order.
+__global__ void __launch_bounds__(256)
+    splitk_sum(const float* __restrict__ ws, float* __restrict__ out,
+               int chunks, long long mn) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= mn) return;
+  float total = 0.0f;
+  for (int c = 0; c < chunks; ++c) total = __fadd_rn(total, ws[c * mn + i]);
+  out[i] = total;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -229,43 +425,109 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <int V>
+int launch_tile(const uint16_t* a, const uint16_t* w, float* out, int M,
+                int K, int N, cudaStream_t s) {
+  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+  daism_matmul_approx<V><<<grid, kThreads, 0, s>>>(a, w, out, M, K, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int V, int MR, int NC>
+int launch_splitk_mr(const uint16_t* a, const uint16_t* w, float* out,
+                     float* ws, int M, int K, int N, cudaStream_t s) {
+  const int chunks = (K + kKc - 1) / kKc;
+  const bool direct = chunks == 1;
+  const int w_vec =
+      (N % NC == 0) && (reinterpret_cast<uintptr_t>(w) % (2 * NC) == 0);
+  const int cols = kSkThreads * NC;
+  const dim3 grid((N + cols - 1) / cols, chunks, (M + MR - 1) / MR);
+  constexpr size_t smem = sizeof(int4) * MR * kKc;
+  if constexpr (smem > 48 * 1024) {  // opt in once per instantiation
+    static const cudaError_t opt_in = cudaFuncSetAttribute(
+        daism_matmul_splitk<V, MR, NC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  }
+  daism_matmul_splitk<V, MR, NC><<<grid, kSkThreads, smem, s>>>(
+      a, w, direct ? out : ws, M, K, N, direct, w_vec);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || direct) return static_cast<int>(err);
+  const long long mn = static_cast<long long>(M) * N;
+  splitk_sum<<<static_cast<unsigned>((mn + 255) / 256), 256, 0, s>>>(
+      ws, out, chunks, mn);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The split-K launch for a plan's row tile and columns per thread (the
+// wrapper's _plan picks them; these are the instantiated pairs).
+template <int V>
+int launch_splitk(const uint16_t* a, const uint16_t* w, float* out, float* ws,
+                  int M, int K, int N, int rows, int cols, cudaStream_t s) {
+  if (rows == 1 && cols == 1)
+    return launch_splitk_mr<V, 1, 1>(a, w, out, ws, M, K, N, s);
+  if (rows == 4 && cols == 1)
+    return launch_splitk_mr<V, 4, 1>(a, w, out, ws, M, K, N, s);
+  if (rows == 4 && cols == 4)
+    return launch_splitk_mr<V, 4, 4>(a, w, out, ws, M, K, N, s);
+  if (rows == kSkMaxRows && cols == 1)
+    return launch_splitk_mr<V, kSkMaxRows, 1>(a, w, out, ws, M, K, N, s);
+  if (rows == kSkMaxRows && cols == 4)
+    return launch_splitk_mr<V, kSkMaxRows, 4>(a, w, out, ws, M, K, N, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int V>
+int launch_approx(const uint16_t* a, const uint16_t* w, float* out, float* ws,
+                  int M, int K, int N, int rows, int cols, cudaStream_t s) {
+  return rows ? launch_splitk<V>(a, w, out, ws, M, K, N, rows, cols, s)
+              : launch_tile<V>(a, w, out, M, K, N, s);
+}
+
 }  // namespace
 
-// C entry point, bound with ctypes. Launches on `stream`, allocates nothing,
-// does not synchronize; returns cudaGetLastError() of the launch (0 = ok).
-// The caller guarantees M, N >= 1, K >= 0 and ceil(M / 64) <= 65535.
-extern "C" int daism_matmul(const void* a, const void* w, void* out, int M,
-                            int K, int N, int variant, void* stream) {
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  const dim3 block(kThreads);
+// C entry points, bound with ctypes. They launch on `stream`, allocate
+// nothing, do not synchronize, and return cudaGetLastError() of the launch
+// (0 = ok).
+
+// The K chunk of the summation order (the wrapper checks it against its
+// own constant).
+extern "C" int daism_matmul_chunk() { return kKc; }
+
+// `rows` 0 takes the tile path; else the split-K path (approximate variants
+// only) with row tiles of `rows` (1, 4 or 16) and `cols` columns a thread (1
+// or 4). `ws`: the split-K workspace of ceil(K / chunk) * M * N floats
+// (unused, and may be null, on the tile path or when K <= chunk). The caller
+// guarantees M, N >= 1, K >= 0, ceil(M / 64) <= 65535 and, on the split-K
+// path, ceil(K / chunk) <= 65535 and ceil(M / rows) <= 65535.
+extern "C" int daism_matmul(const void* a, const void* w, void* out, void* ws,
+                            int M, int K, int N, int variant, int rows,
+                            int cols, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* a16 = static_cast<const uint16_t*>(a);
   const auto* w16 = static_cast<const uint16_t*>(w);
   auto* o = static_cast<float*>(out);
-  switch (variant) {
-    case daism::kExact:
-      daism_matmul_exact<<<grid, block, 0, s>>>(a16, w16, o, M, K, N);
-      break;
-    case daism::kFla:
-      daism_matmul_approx<daism::kFla><<<grid, block, 0, s>>>(a16, w16, o, M, K, N);
-      break;
-    case daism::kHla:
-      daism_matmul_approx<daism::kHla><<<grid, block, 0, s>>>(a16, w16, o, M, K, N);
-      break;
-    case daism::kPc2:
-      daism_matmul_approx<daism::kPc2><<<grid, block, 0, s>>>(a16, w16, o, M, K, N);
-      break;
-    case daism::kPc3:
-      daism_matmul_approx<daism::kPc3><<<grid, block, 0, s>>>(a16, w16, o, M, K, N);
-      break;
-    case daism::kPc2Tr:
-      daism_matmul_approx<daism::kPc2Tr><<<grid, block, 0, s>>>(a16, w16, o, M, K, N);
-      break;
-    case daism::kPc3Tr:
-      daism_matmul_approx<daism::kPc3Tr><<<grid, block, 0, s>>>(a16, w16, o, M, K, N);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  auto* wsf = static_cast<float*>(ws);
+  if (K == 0) {  // an empty sum: zeros, as the tile path writes them
+    return static_cast<int>(cudaMemsetAsync(
+        out, 0, sizeof(float) * static_cast<size_t>(M) * N, s));
   }
-  return static_cast<int>(cudaGetLastError());
+  if (variant == daism::kExact) {
+    if (rows) return static_cast<int>(cudaErrorInvalidValue);
+    const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+    daism_matmul_exact<<<grid, kThreads, 0, s>>>(a16, w16, o, M, K, N);
+    return static_cast<int>(cudaGetLastError());
+  }
+  int (*launch)(const uint16_t*, const uint16_t*, float*, float*, int, int,
+                int, int, int, cudaStream_t) = nullptr;
+  switch (variant) {
+    case daism::kFla: launch = launch_approx<daism::kFla>; break;
+    case daism::kHla: launch = launch_approx<daism::kHla>; break;
+    case daism::kPc2: launch = launch_approx<daism::kPc2>; break;
+    case daism::kPc3: launch = launch_approx<daism::kPc3>; break;
+    case daism::kPc2Tr: launch = launch_approx<daism::kPc2Tr>; break;
+    case daism::kPc3Tr: launch = launch_approx<daism::kPc3Tr>; break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch(a16, w16, o, wsf, M, K, N, rows, cols, s);
 }

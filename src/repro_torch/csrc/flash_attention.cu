@@ -15,22 +15,45 @@
 //     max(m, rowmax s); corr = exp(m - m_new); p = exp(s - m_new) with masked
 //     lanes zeroed; l = l * corr + rowsum p; acc = acc * corr + p v. At the
 //     end o = acc / max(l, 1e-30), rounded to the input type. exp is expf
-//     (no fast-math), bf16 rounding is round-to-nearest-even;
-//   * exact mode multiplies in f32 (fmaf); approximate mode runs the
-//     DAISM product of approx_product.cuh on bf16 fields with q and p as
-//     the multiplier and k and v as the multiplicand, as the reference's
-//     approx_matmul_tile(q, k.T) and approx_matmul_tile(p.bf16, v) do.
+//     (no fast-math), bf16 rounding is round-to-nearest-even.
 //
-// What bounds it. Approximate mode is bound by integer operations: every
-// score and every p.v term is a DAISM product of about 20 integer
-// operations on the SM's 64 INT32 lanes, and a causal (S, S) head needs
-// S (S + 1) / 2 score pairs, each with 2 D products. Exact mode is bound by
-// operations too (4 D flops per pair against the tensor cores' 989 TFLOP/s
-// in bf16), but this kernel runs its f32 FMAs on the CUDA cores (67
-// TFLOP/s) and issues no wgmma or mma, so it reaches at most ~7% of that
-// bound. Bytes (q, k, v and o once) are far below either.
+// Two kernels, chosen by dtype and variant alone (never as a fallback):
 //
-// Design (simple and correct first):
+// flash_fwd_tc: exact mode on bf16 q, k, v, on the tensor cores.
+//   What bounds it: 4 D flops per causal score pair on the bf16 tensor
+//   cores (989 TFLOP/s; 1.5x that work here, see PV below), then the f32
+//   softmax on the CUDA cores: an expf and ~15 other f32 operations per
+//   score, with the exps on the SFU (16 a clock an SM). Bytes (q, k, v and
+//   o once) are far below either. Design, FlashAttention-2's shape:
+//   * one block of 4 warps per (batch x head, 64-query tile), each warp
+//     owning 16 query rows; the grid issues the longest causal query tiles
+//     first, so the causal imbalance leaves no tail;
+//   * q is loaded once into registers (ldmatrix fragments); K and V tiles
+//     are bf16 in shared memory (2 bytes an element, rows padded by 16
+//     bytes so ldmatrix does not conflict) in a 2-stage ring filled with
+//     cp.async while the previous tile computes; D is padded to a multiple
+//     of 16 with zeros, which add exactly 0; 72 KB at D = 64, 3 blocks an SM;
+//   * S = Q K^T by mma.sync m16n8k16 (bf16 in, f32 accumulate): bf16
+//     products are exact in f32, so the scores differ from the reference's
+//     f32 dot only in summation order. The online softmax stays in
+//     registers (row max and row sum by quad shuffles);
+//   * the reference multiplies an f32 p by v: p is split into p_hi =
+//     bf16(p) and p_lo = bf16(p - p_hi), and PV runs as p_hi V + p_lo V
+//     (V through ldmatrix.trans), which keeps p to ~16 mantissa bits. The
+//     QK accumulator's layout is the PV A fragment's, so p never goes
+//     through shared memory;
+//   * a warp skips the key columns above its causal diagonal.
+//
+// flash_fwd: the six approximate variants, and exact mode on f32 inputs
+//   (the tensor cores' TF32 would break the f32 bound). Approximate mode
+//   runs the DAISM product of approx_product.cuh on bf16 fields with q and
+//   p as the multiplier and k and v as the multiplicand, as the reference's
+//   approx_matmul_tile(q, k.T) and approx_matmul_tile(p.bf16, v) do; f32
+//   exact mode multiplies in f32 (fmaf).
+//   What bounds it: integer operations. Every score and every p.v term is a
+//   DAISM product of about 20 integer operations on the SM's 64 INT32
+//   lanes, and a causal (S, S) head needs S (S + 1) / 2 score pairs, each
+//   with 2 D products. Design (simple and correct first):
 //   * one block of 256 threads per (batch x head, 64-query tile); a loop
 //     inside the block walks the KV tiles (the TPU's sequential innermost
 //     grid axis); tiles above the causal diagonal or past kv_len are
@@ -44,13 +67,11 @@
 //     the exps and the row sum, and writes p back in place (as the packed
 //     fields of its bf16 rounding in approximate mode); m, l and the
 //     correction per row live in shared memory, acc in registers
-//     (4 rows x D/16 columns per thread);
-//   * the grouped-query kv head is computed, not materialized by a repeat;
-//     q, k, v, o are read and written through their strides, so the
-//     (B, S, H, D) layout needs no transpose; ragged edges load as raw
-//     zeros (a zero mantissa gives a zero product), query rows past Sq are
-//     not stored, keys past kv_len are masked.
-// wgmma, TMA and a ring of tiles in flight are left for later.
+//     (4 rows x D/16 columns per thread).
+// Both read q, k, v, o through their strides (the (B, S, H, D) layout needs
+// no transpose), compute the grouped-query kv head instead of repeating it,
+// load ragged edges as zeros (a zero mantissa gives a zero product), do not
+// store query rows past Sq, and mask keys past kv_len.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -107,10 +128,7 @@ __device__ __forceinline__ daism::WFields unpack_w(uint32_t w) {
   return f;
 }
 
-// Inputs are bf16 (raw bits) or f32 (exact mode only).
-__device__ __forceinline__ float to_f32(uint16_t x) {
-  return daism::bf16_to_f32(x);
-}
+// flash_fwd's exact mode takes f32 inputs only (bf16 runs flash_fwd_tc)
 __device__ __forceinline__ float to_f32(float x) { return x; }
 
 __device__ __forceinline__ void store(uint16_t* dst, float x) {
@@ -393,6 +411,381 @@ int launch(const void* q, const void* k, const void* v, void* o,
   return launch_nc<V, T, 8>(q, k, v, o, p, grid, s);
 }
 
+
+// ---------------------------------------------------------------------------
+// flash_fwd_tc: exact mode, bf16, on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kTcWarps = 4;
+constexpr int kTcThreads = 32 * kTcWarps;
+static_assert(kBQ == 16 * kTcWarps, "each warp owns 16 query rows");
+
+// KD: 16-column steps of the head dim (D padded to 16 KD with zeros)
+template <int KD>
+struct TcTile {
+  static constexpr int kDp = 16 * KD;
+  static constexpr int kLd = kDp + 8;   // row pitch, elements: +16 bytes
+  static constexpr int kElems = kBK * kLd;  // one K or V tile
+  // two stages of (K, V); q passes through stage 1's K buffer first
+  static constexpr int kSmemBytes = 4 * kElems * 2;
+  // blocks an SM holds by shared memory (72 KB at D = 64: 3); the
+  // registers are capped to match
+  static constexpr int kMinBlocks = KD <= 4 ? 3 : KD <= 6 ? 2 : 1;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zeros when !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c += a b on one m16n8k16 tile (bf16 in, f32 accumulate); registers only,
+// so the compiler may schedule it freely
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 values rounded to bf16 (nearest even), packed: the first in the
+// low half
+__device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
+  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&x);
+}
+
+// p_hi = bf16(p) and p_lo = bf16(p - p_hi) of two neighbouring p values
+__device__ __forceinline__ void split_p(float p0, float p1, uint32_t& hi,
+                                        uint32_t& lo) {
+  hi = bf16x2_bits(p0, p1);
+  const float h0 = __uint_as_float(hi << 16);
+  const float h1 = __uint_as_float(hi & 0xFFFF0000u);
+  lo = bf16x2_bits(p0 - h0, p1 - h1);
+}
+
+// ROWS rows of a (sequence, D) slice into shared memory [row][kLd], the
+// head dim padded with zeros; rows at or past `limit` load as zeros.
+// `vec`: D % 8 == 0 and the rows 16-byte aligned, so cp.async moves whole
+// 16-byte pieces; else a plain gather.
+template <int KD, int ROWS>
+__device__ __forceinline__ void load_rows(uint16_t* dst,
+                                          const uint16_t* __restrict__ src,
+                                          long long ss, int row0, int limit,
+                                          int D, bool vec) {
+  constexpr int kPieces = 2 * KD;  // 16-byte pieces a row
+  for (int idx = threadIdx.x; idx < ROWS * kPieces; idx += kTcThreads) {
+    const int r = idx / kPieces;
+    const int d0 = 8 * (idx % kPieces);
+    uint16_t* out = dst + r * TcTile<KD>::kLd + d0;
+    const bool row_ok = row0 + r < limit;
+    const uint16_t* in = src + (row_ok ? (row0 + r) * ss + d0 : 0);
+    if (vec) {
+      cp_async16(out, in, row_ok && d0 < D);
+    } else {
+      uint16_t e[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) e[i] = row_ok && d0 + i < D ? in[i] : 0;
+      *reinterpret_cast<uint4*>(out) = make_uint4(
+          e[0] | (static_cast<uint32_t>(e[1]) << 16),
+          e[2] | (static_cast<uint32_t>(e[3]) << 16),
+          e[4] | (static_cast<uint32_t>(e[5]) << 16),
+          e[6] | (static_cast<uint32_t>(e[7]) << 16));
+    }
+  }
+}
+
+template <int KD>
+__global__ void __launch_bounds__(kTcThreads, TcTile<KD>::kMinBlocks)
+    flash_fwd_tc(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+                 const uint16_t* __restrict__ v, uint16_t* __restrict__ o,
+                 Params p, int vec_in, int vec_out) {
+  using T = TcTile<KD>;
+  extern __shared__ uint4 smem_tc[];
+  uint16_t* const tiles = reinterpret_cast<uint16_t*>(smem_tc);
+  // stage st: K at tiles + 2 st kElems, V right after it
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;  // fragment row (and row + 8)
+  const int c4 = lane % 4;  // fragment column pair
+  const int b = blockIdx.x / p.H;
+  const int h = blockIdx.x % p.H;
+  const int kvh = h / (p.H / p.KH);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // longest rows first
+  const int wr0 = q0 + 16 * warp;  // the warp's first query row
+  const int D = p.D;
+
+  const uint16_t* qb = q + b * p.q_sb + h * p.q_sh;
+  const uint16_t* kb = k + b * p.k_sb + kvh * p.k_sh;
+  const uint16_t* vb = v + b * p.v_sb + kvh * p.v_sh;
+  uint16_t* ob = o + b * p.o_sb + h * p.o_sh;
+
+  const int q_last = min(q0 + kBQ, p.Sq) - 1;
+  const int k_end = p.causal ? min(p.kv_len, q_last + 1) : p.kv_len;
+  const int n_tiles = (k_end + kBK - 1) / kBK;
+
+  // q (into stage 1's K buffer) and KV tile 0 (stage 0), then q's
+  // fragments into registers before tile 1 overwrites stage 1
+  load_rows<KD, kBQ>(tiles + 2 * T::kElems, qb, p.q_ss, q0, p.Sq, D, vec_in);
+  load_rows<KD, kBK>(tiles, kb, p.k_ss, 0, p.Skv, D, vec_in);
+  load_rows<KD, kBK>(tiles + T::kElems, vb, p.v_ss, 0, p.Skv, D, vec_in);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qf[KD][4];
+#pragma unroll
+  for (int kd = 0; kd < KD; ++kd)
+    ldsm_x4(qf[kd], tiles + 2 * T::kElems +
+                        (16 * warp + lane % 16) * T::kLd + 16 * kd +
+                        (lane / 16) * 8);
+  __syncthreads();
+
+  float acc[2 * KD][4];
+#pragma unroll
+  for (int t = 0; t < 2 * KD; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.0f;
+  float m_r[2] = {-INFINITY, -INFINITY};
+  float l_r[2] = {0.0f, 0.0f};  // this thread's part of the row sums
+  const int rows[2] = {wr0 + g, wr0 + g + 8};
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * kBK;
+    if (j + 1 < n_tiles) {
+      uint16_t* nk = tiles + 2 * ((j + 1) & 1) * T::kElems;
+      load_rows<KD, kBK>(nk, kb, p.k_ss, k0 + kBK, p.Skv, D, vec_in);
+      load_rows<KD, kBK>(nk + T::kElems, vb, p.v_ss, k0 + kBK, p.Skv, D,
+                         vec_in);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint16_t* ks = tiles + 2 * (j & 1) * T::kElems;
+    const uint16_t* vs = ks + T::kElems;
+
+    // the last key offset of this tile any row of the warp sees
+    const int key_hi = p.causal ? wr0 + 15 - k0 : kBK - 1;
+    if (wr0 < p.Sq && key_hi >= 0) {
+      // S = Q K^T: 16 n8 tiles over the 128 keys
+      float s[kBK / 8][4];
+#pragma unroll
+      for (int t = 0; t < kBK / 8; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[t][e] = 0.0f;
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+#pragma unroll
+        for (int np = 0; np < kBK / 16; ++np) {
+          if (16 * np > key_hi) continue;
+          uint32_t bk[4];
+          ldsm_x4(bk, ks + (16 * np + (lane & 7) + (lane >> 4) * 8) * T::kLd +
+                          16 * kd + ((lane >> 3) & 1) * 8);
+          mma_bf16(s[2 * np], qf[kd], bk[0], bk[1]);
+          mma_bf16(s[2 * np + 1], qf[kd], bk[2], bk[3]);
+        }
+      }
+
+      // scale and mask (a tile wholly visible to the warp needs no mask);
+      // the row max over the quad
+      const bool full =
+          k0 + kBK <= p.kv_len && (!p.causal || k0 + kBK - 1 <= wr0);
+      // (four independent max and sum chains, one per fragment slot)
+      float mx4[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+      if (full) {
+#pragma unroll
+        for (int t = 0; t < kBK / 8; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[t][e] *= p.scale;
+            mx4[e] = fmaxf(mx4[e], s[t][e]);
+          }
+      } else {
+#pragma unroll
+        for (int t = 0; t < kBK / 8; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = k0 + 8 * t + 2 * c4 + (e & 1);
+            const bool keep =
+                key < p.kv_len && (!p.causal || key <= rows[e >> 1]);
+            s[t][e] = keep ? s[t][e] * p.scale : kMasked;
+            mx4[e] = fmaxf(mx4[e], s[t][e]);
+          }
+      }
+      float mx[2] = {fmaxf(mx4[0], mx4[1]), fmaxf(mx4[2], mx4[3])};
+      float m_new[2], corr[2], rsum4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        m_new[i] = fmaxf(m_r[i], mx[i]);
+        corr[i] = expf(m_r[i] - m_new[i]);
+        m_r[i] = m_new[i];
+      }
+      if (full) {
+#pragma unroll
+        for (int t = 0; t < kBK / 8; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[t][e] = expf(s[t][e] - m_new[e >> 1]);
+            rsum4[e] += s[t][e];
+          }
+      } else {
+#pragma unroll
+        for (int t = 0; t < kBK / 8; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = k0 + 8 * t + 2 * c4 + (e & 1);
+            const bool keep =
+                key < p.kv_len && (!p.causal || key <= rows[e >> 1]);
+            s[t][e] = keep ? expf(s[t][e] - m_new[e >> 1]) : 0.0f;
+            rsum4[e] += s[t][e];
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        l_r[i] = l_r[i] * corr[i] + (rsum4[2 * i] + rsum4[2 * i + 1]);
+#pragma unroll
+      for (int t = 0; t < 2 * KD; ++t) {
+        acc[t][0] *= corr[0];
+        acc[t][1] *= corr[0];
+        acc[t][2] *= corr[1];
+        acc[t][3] *= corr[1];
+      }
+
+      // acc += p_hi V + p_lo V, 16 keys a step: the V fragments first, then
+      // the p_hi products of every d tile, then the p_lo ones, so no MMA
+      // waits on the one before it
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        if (16 * kk > key_hi) continue;
+        uint32_t ph[4], pl[4];
+        split_p(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+        split_p(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+        split_p(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+        split_p(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+        uint32_t bv[KD][4];
+#pragma unroll
+        for (int dp = 0; dp < KD; ++dp)
+          ldsm_x4_trans(bv[dp], vs + (16 * kk + (lane & 7) +
+                                      ((lane >> 3) & 1) * 8) * T::kLd +
+                                    16 * dp + (lane >> 4) * 8);
+#pragma unroll
+        for (int dp = 0; dp < KD; ++dp) {
+          mma_bf16(acc[2 * dp], ph, bv[dp][0], bv[dp][1]);
+          mma_bf16(acc[2 * dp + 1], ph, bv[dp][2], bv[dp][3]);
+        }
+#pragma unroll
+        for (int dp = 0; dp < KD; ++dp) {
+          mma_bf16(acc[2 * dp], pl, bv[dp][0], bv[dp][1]);
+          mma_bf16(acc[2 * dp + 1], pl, bv[dp][2], bv[dp][3]);
+        }
+      }
+    }
+    __syncthreads();  // the next tile's load overwrites this stage
+  }
+
+  // o = acc / max(l, 1e-30), rounded to bf16
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_r[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l = fmaxf(l, 1e-30f);
+    if (rows[i] >= p.Sq) continue;
+    uint16_t* orow = ob + rows[i] * p.o_ss;
+#pragma unroll
+    for (int t = 0; t < 2 * KD; ++t) {
+      const int d = 8 * t + 2 * c4;
+      const float o0 = acc[t][2 * i] / l;
+      const float o1 = acc[t][2 * i + 1] / l;
+      if (vec_out) {
+        if (d < D) *reinterpret_cast<uint32_t*>(orow + d) = bf16x2_bits(o0, o1);
+      } else {
+        if (d < D) store(orow + d, o0);
+        if (d + 1 < D) store(orow + d + 1, o1);
+      }
+    }
+  }
+}
+
+template <int KD>
+int launch_tc_kd(const void* q, const void* k, const void* v, void* o,
+                 const Params& p, dim3 grid, int vec_in, int vec_out,
+                 cudaStream_t s) {
+  constexpr int bytes = TcTile<KD>::kSmemBytes;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_tc<KD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_fwd_tc<KD><<<grid, kTcThreads, bytes, s>>>(
+      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
+      static_cast<const uint16_t*>(v), static_cast<uint16_t*>(o), p, vec_in,
+      vec_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned(const void* ptr, int bytes) {
+  return reinterpret_cast<uintptr_t>(ptr) % bytes == 0;
+}
+
+int launch_tc(const void* q, const void* k, const void* v, void* o,
+              const Params& p, int bh, cudaStream_t s) {
+  const int nq = (p.Sq + kBQ - 1) / kBQ;
+  if (nq > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(bh, nq);
+  // whole 16-byte pieces of q, k, v rows (cp.async), bf16 pairs of o rows
+  const bool vec_in =
+      p.D % 8 == 0 && aligned(q, 16) && aligned(k, 16) && aligned(v, 16) &&
+      p.q_sb % 8 == 0 && p.q_ss % 8 == 0 && p.q_sh % 8 == 0 &&
+      p.k_sb % 8 == 0 && p.k_ss % 8 == 0 && p.k_sh % 8 == 0 &&
+      p.v_sb % 8 == 0 && p.v_ss % 8 == 0 && p.v_sh % 8 == 0;
+  const bool vec_out = p.D % 2 == 0 && aligned(o, 4) && p.o_sb % 2 == 0 &&
+                       p.o_ss % 2 == 0 && p.o_sh % 2 == 0;
+  switch ((p.D + 15) / 16) {
+    case 1: return launch_tc_kd<1>(q, k, v, o, p, grid, vec_in, vec_out, s);
+    case 2: return launch_tc_kd<2>(q, k, v, o, p, grid, vec_in, vec_out, s);
+    case 3: return launch_tc_kd<3>(q, k, v, o, p, grid, vec_in, vec_out, s);
+    case 4: return launch_tc_kd<4>(q, k, v, o, p, grid, vec_in, vec_out, s);
+    case 5: return launch_tc_kd<5>(q, k, v, o, p, grid, vec_in, vec_out, s);
+    case 6: return launch_tc_kd<6>(q, k, v, o, p, grid, vec_in, vec_out, s);
+    case 7: return launch_tc_kd<7>(q, k, v, o, p, grid, vec_in, vec_out, s);
+    case 8: return launch_tc_kd<8>(q, k, v, o, p, grid, vec_in, vec_out, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // C entry point, bound with ctypes. Launches on `stream`, allocates
@@ -400,6 +793,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
 // (0 = ok). `strides` holds 12 element strides: batch, sequence and head
 // of q, k, v and o, in that order (the head dim is contiguous). `is_f32`:
 // the inputs and output are f32 (exact mode only) instead of bf16.
+// bf16 exact launches flash_fwd_tc, everything else flash_fwd.
 // The caller guarantees 1 <= D <= 128, H % KH == 0, B * H <= 65535,
 // 1 <= kv_len <= Skv and Sq >= 1.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
@@ -412,16 +806,18 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
            strides[0], strides[1], strides[2], strides[3], strides[4],
            strides[5], strides[6], strides[7], strides[8], strides[9],
            strides[10], strides[11]};
-  const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // bf16 exact runs on the tensor cores; f32 exact and the approximate
+  // variants on flash_fwd (see the note at the top)
+  if (!is_f32 && variant == daism::kExact)
+    return launch_tc(q, k, v, o, p, B * H, s);
+  const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
   if (is_f32) {
     if (variant != daism::kExact)
       return static_cast<int>(cudaErrorInvalidValue);
     return launch<daism::kExact, float>(q, k, v, o, p, grid, s);
   }
   switch (variant) {
-    case daism::kExact:
-      return launch<daism::kExact, uint16_t>(q, k, v, o, p, grid, s);
     case daism::kFla:
       return launch<daism::kFla, uint16_t>(q, k, v, o, p, grid, s);
     case daism::kHla:

@@ -45,26 +45,29 @@ def _sources(name: str) -> Iterable[Path]:
     return [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh"))
 
 
-def library_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def library_path(name: str, defines: Iterable[str] = ()) -> Path:
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *defines)).encode())
     for src in _sources(name):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def compile_library(name: str, *, verbose: bool = False) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a build of the same sources exists.
+def compile_library(name: str, *, verbose: bool = False,
+                    defines: Iterable[str] = ()) -> Path:
+    """Compile ``csrc/<name>.cu`` unless a build of the same sources (and
+    extra ``-D`` flags ``defines``) exists.
 
     Writes to a temporary name and renames, so concurrent builds of one
     library never load a half-written file. Returns the library's path.
     """
-    out = library_path(name)
+    defines = tuple(defines)
+    out = library_path(name, defines)
     if out.is_file():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC)]
+    cmd = [nvcc_path(), *NVCC_FLAGS, *defines, "-I", str(CSRC)]
     if verbose:
         cmd += ["-Xptxas", "-v"]
     cmd += ["-o", str(tmp), str(CSRC / f"{name}.cu")]

@@ -1,24 +1,37 @@
-"""The DAISM approximate GEMM kernel for Hopper and its plain version.
+"""The DAISM approximate GEMM kernel for Hopper, its plain version and its
+ordered oracle.
 
 Replaces the Pallas TPU kernel ``repro/kernels/daism_matmul.py::_kernel``.
 The kernel itself is CUDA C++ in ``csrc/daism_matmul.cu`` (design notes and
 what bounds it are there); this module binds it with ``ctypes`` and launches
 it on PyTorch's current stream. :func:`daism_matmul_plain` computes the same
 function with tensor ops, the fused K sweep of
-:mod:`~repro_torch.kernels.approx_product`.
+:mod:`~repro_torch.kernels.approx_product` (another f32 summation order).
+:func:`daism_matmul_ordered` adds the same products in the kernel's own
+order (K chunks of :data:`KC`, ascending), so the kernel must equal it bit
+for bit; nothing on the main path calls it.
 
-``launches`` counts kernel launches (and nothing else), so a run can show
-that its main path went through the kernel.
+The kernel has two paths, one function: a tile path for large M and a
+split-K path for decode batches and small tile grids; :func:`_plan` holds
+the whole rule that picks them (and the split-K path's row tile and columns
+a thread). The chunk order makes their bits the same, and makes a row's
+bits independent of M.
+
+``launches`` counts GEMM calls that launched the kernel (one per call,
+whatever the path), ``sum_launches`` the split-K path's second pass (the
+chunk sum), so a run can show that its main path went through the kernel.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from repro_torch.core.config import Variant
 
-from .approx_product import approx_matmul_tile
+from .approx_product import (approx_matmul_tile, compose_products_f32,
+                             decompose_bf16_i32)
 from .build import load_library
 
 # variant -> the C enum in csrc/approx_product.cuh
@@ -26,22 +39,43 @@ VARIANT_IDS = {
     Variant.EXACT: 0, Variant.FLA: 1, Variant.HLA: 2, Variant.PC2: 3,
     Variant.PC3: 4, Variant.PC2_TR: 5, Variant.PC3_TR: 6,
 }
-BLOCK_M = 64  # the kernel's output tile rows (csrc/daism_matmul.cu kBM)
-_MAX_GRID_Y = 65535
+BLOCK_M = 64  # the tile path's output tile rows (csrc/daism_matmul.cu kBM)
+# The K chunk of the summation order (csrc/daism_matmul.cu kKc): part of
+# the function, like flash attention's 128-key tile. Chosen by measurement
+# on the H100 (tools/gemm_kc_sweep.py, PERF.md).
+KC = 64
+# Which path a call takes is a speed choice only (every plan gives the same
+# bits), made by measurement on the H100 (PERF.md): split-K up to M = 16, and
+# up to M = 128 while the tile grid would give fewer than two blocks an SM
+# (k/v, q/o, wi/wg and ffn/wo at a 128-row prefill chunk); the tile path
+# above that (the lm_head at M >= 64, every prefill and train GEMM).
+SPLIT_K_MAX_M = 128
+SPLIT_K_ALWAYS_M = 16
+SPLIT_K_TILE_BLOCKS = 2 * 132
+# A split-K grid wants this many threads (128 a block) to give each of the
+# 132 SMs' 4 schedulers two warps; below it a plan spreads the work thinner.
+SPLIT_K_MIN_THREADS = 132 * 4 * 2 * 32
+_MAX_GRID = 65535
 
 launches = 0
-_launch = None  # the bound C entry point, set on first use
+sum_launches = 0
+_launch_c = None  # the bound C entry point, set on first use
 
 
 def _bind():
     """Load (building if needed) the library and bind its C function once."""
-    global _launch
-    fn = load_library("daism_matmul").daism_matmul
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+    global _launch_c
+    lib = load_library("daism_matmul")
+    chunk = lib.daism_matmul_chunk
+    chunk.argtypes, chunk.restype = [], ctypes.c_int
+    if chunk() != KC:
+        raise RuntimeError(f"csrc/daism_matmul.cu sums K in chunks of "
+                           f"{chunk()}, this module in chunks of {KC}")
+    fn = lib.daism_matmul
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    _launch = fn
+    _launch_c = fn
     return fn
 
 
@@ -56,30 +90,80 @@ def _check_operands(a: torch.Tensor, w: torch.Tensor) -> None:
                          "dual-plane jnp backend")
 
 
+def _plan(m: int, k: int, n: int, variant: Variant,
+          path: Optional[str] = None, kc: int = KC) -> Optional[tuple]:
+    """How an (M, K) @ (K, N) call runs: ``None`` for the tile path, else the
+    split-K path's (rows a block, columns a thread). ``path`` (``"tile"`` or
+    ``"splitk"``) forces the path; ``None`` picks it by shape (see
+    :data:`SPLIT_K_MAX_M`). The split-K plan takes 4 columns a thread (their
+    w as one 8-byte load, each x field shared by 4 products) while the grid
+    keeps :data:`SPLIT_K_MIN_THREADS`, else 1 (4x the threads); row tiles of
+    4 (a decode batch) or 16, and of 1 for one row or a narrow GEMM (k/v at
+    decode), which gives each row its own blocks. Measured on the H100:
+    PERF.md."""
+    if path is None:
+        tile_blocks = -(-m // BLOCK_M) * -(-n // BLOCK_M)
+        split = Variant(variant) is not Variant.EXACT and m <= SPLIT_K_MAX_M \
+            and (m <= SPLIT_K_ALWAYS_M or tile_blocks < SPLIT_K_TILE_BLOCKS)
+    elif path in ("tile", "splitk"):
+        split = path == "splitk"
+    else:
+        raise ValueError(f"path must be 'tile' or 'splitk', got {path!r}")
+    if not split:
+        return None
+    chunks = -(-k // kc)
+    if m <= 1 or n * chunks * -(-m // 4) < SPLIT_K_MIN_THREADS:
+        return 1, 1
+    rows = 4 if m <= 4 else 16
+    wide = -(-n // 4) * chunks * -(-m // rows) >= SPLIT_K_MIN_THREADS
+    return rows, 4 if wide else 1
+
+
 def daism_matmul_kernel(a: torch.Tensor, w: torch.Tensor,
                         variant: Variant = Variant.PC3_TR) -> torch.Tensor:
-    """(M, K) @ (K, N) bf16 CUDA tensors -> (M, N) f32 via the CUDA kernel.
+    """(M, K) @ (K, N) bf16 CUDA tensors -> (M, N) f32 via the CUDA kernel,
+    on the path :func:`_plan` picks by shape.
 
     Raises on anything the kernel does not take: operands off the card,
     another dtype, a rank other than 2, non-contiguous storage.
     """
-    global launches
+    return _launch(a, w, variant)
+
+
+def _launch(a: torch.Tensor, w: torch.Tensor, variant: Variant,
+            path: Optional[str] = None) -> torch.Tensor:
+    """:func:`daism_matmul_kernel` with the path forced (``"tile"`` or
+    ``"splitk"``) or, for ``None``, picked by shape. Every path gives the
+    same bits (the tests and chip_smoke.py force each to show it); EXACT has
+    the tile path only."""
+    global launches, sum_launches
     _check_operands(a, w)
     if a.device.type != "cuda" or w.device != a.device:
         raise ValueError(f"daism_matmul_kernel needs both operands on one CUDA "
                          f"device, got {a.device} and {w.device}")
     if not (a.is_contiguous() and w.is_contiguous()):
         raise ValueError("daism_matmul_kernel needs contiguous operands")
+    variant = Variant(variant)
     m, k = a.shape
     n = w.shape[1]
-    if max(m, k, n) >= 2**31 or -(-m // BLOCK_M) > _MAX_GRID_Y:
+    plan = _plan(m, k, n, variant, path)
+    if plan is not None and variant is Variant.EXACT:
+        raise ValueError("the split-K path runs the approximate variants only")
+    chunks = -(-k // KC)
+    grid = (chunks, -(-m // plan[0])) if plan else (-(-m // BLOCK_M),)
+    if max(m, k, n) >= 2**31 or max(grid) > _MAX_GRID:
         raise ValueError(f"shape ({m}, {k}, {n}) exceeds the kernel's grid")
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     if m == 0 or n == 0:
         return out
-    fn = _launch or _bind()
-    args = (a.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n,
-            VARIANT_IDS[Variant(variant)],
+    second_pass = plan is not None and chunks > 1
+    ws = (torch.empty((chunks, m, n), dtype=torch.float32, device=a.device)
+          if second_pass else None)
+    fn = _launch_c or _bind()
+    rows, cols = plan or (0, 0)
+    args = (a.data_ptr(), w.data_ptr(), out.data_ptr(),
+            ws.data_ptr() if ws is not None else None, m, k, n,
+            VARIANT_IDS[variant], rows, cols,
             torch.cuda.current_stream(a.device).cuda_stream)
     if a.device.index == torch.cuda.current_device():
         err = fn(*args)
@@ -89,6 +173,7 @@ def daism_matmul_kernel(a: torch.Tensor, w: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"daism_matmul launch failed: CUDA error {err}")
     launches += 1
+    sum_launches += second_pass
     return out
 
 
@@ -101,3 +186,40 @@ def daism_matmul_plain(a: torch.Tensor, w: torch.Tensor,
     if variant is Variant.EXACT:
         return a.to(torch.float32) @ w.to(torch.float32)
     return approx_matmul_tile(a, w, variant)
+
+
+def daism_matmul_ordered(a: torch.Tensor, w: torch.Tensor,
+                         variant: Variant = Variant.PC3_TR) -> torch.Tensor:
+    """The kernel's function in its own summation order, on any device:
+    (M, K) @ (K, N) bf16 -> (M, N) f32, for the six approximate variants.
+
+    ``total = 0``; for each K chunk of :data:`KC` ascending, ``part = 0``,
+    ``part += product`` for k ascending, ``total += part``, every add an f32
+    add. The per-element products come from
+    :mod:`~repro_torch.kernels.approx_product` (bit-exact against
+    ``kernels/ref.py``), 16 columns of K at a time. A row's result
+    depends on that row of ``a`` and on ``w`` only. The kernel equals this
+    bit for bit on either path; nothing on the main path calls it (it loops
+    over K in Python).
+    """
+    _check_operands(a, w)
+    variant = Variant(variant)
+    if variant is Variant.EXACT:
+        raise ValueError("daism_matmul_ordered is the approximate variants' "
+                         "oracle; EXACT sums in plain ascending k order")
+    m, k = a.shape
+    n = w.shape[1]
+    xf, wf = decompose_bf16_i32(a), decompose_bf16_i32(w)
+    total = torch.zeros((m, n), dtype=torch.float32, device=a.device)
+    for c0 in range(0, k, KC):
+        c1 = min(c0 + KC, k)
+        part = torch.zeros_like(total)
+        for lo in range(c0, c1, 16):
+            hi = min(lo + 16, c1)
+            prods = compose_products_f32(
+                tuple(f[:, lo:hi, None] for f in xf),
+                tuple(f[None, lo:hi, :] for f in wf), variant)
+            for i in range(hi - lo):
+                part = part + prods[:, i]
+        total = total + part
+    return total

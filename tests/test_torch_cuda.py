@@ -95,3 +95,92 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
     big = torch.zeros((1, 128, 256), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention_kernel(big, big, big)
+
+
+APPROX = [v.value for v in Variant if v is not Variant.EXACT]
+
+
+def _bits(x):
+    return x.view(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 512, 384), (1, 300, 130), (16, 200, 1030),
+                                   (3, 64, 5), (80, 700, 96)])
+@pytest.mark.parametrize("variant", APPROX)
+def test_both_paths_bit_identical_to_ordered_oracle(cuda, variant, shape):
+    """The tile path, the split-K path and the default choice each equal
+    daism_matmul_ordered bit for bit (decode shapes, a single-chunk K, and
+    M = 80, past the split-K threshold)."""
+    m, k, n = shape
+    g = torch.Generator(device=cuda).manual_seed(2)
+    a = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
+    w = torch.randn((k, n), generator=g, device=cuda).to(torch.bfloat16)
+    ref = dm.daism_matmul_ordered(a, w, Variant(variant))
+    before = dm.launches
+    for path in ("tile", "splitk", None):
+        got = dm._launch(a, w, Variant(variant), path)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got), _bits(ref)), path
+    assert dm.launches == before + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["fla", "hla", "pc3_tr"])
+def test_kernel_rows_do_not_depend_on_m(cuda, variant):
+    """Rows 0-3 of an M = 128 launch (tile path) equal an M = 4 launch
+    (split-K path) and an M = 1 launch on the same rows, bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    a = torch.randn((128, 700), generator=g, device=cuda).to(torch.bfloat16)
+    w = torch.randn((700, 260), generator=g, device=cuda).to(torch.bfloat16)
+    big = dm.daism_matmul_kernel(a, w, Variant(variant))
+    small = dm.daism_matmul_kernel(a[:4].contiguous(), w, Variant(variant))
+    one = dm.daism_matmul_kernel(a[2:3].contiguous(), w, Variant(variant))
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(big[:4]), _bits(small))
+    assert torch.equal(_bits(big[2:3]), _bits(one))
+
+
+@pytest.mark.cuda
+def test_split_k_counts_its_second_pass(cuda):
+    """One count per GEMM call whatever the path; the chunk sum counts
+    apart, and only when K spans more than one chunk."""
+    a = torch.ones((4, 3 * dm.KC), dtype=torch.bfloat16, device=cuda)
+    w = torch.ones((3 * dm.KC, 8), dtype=torch.bfloat16, device=cuda)
+    n0, s0 = dm.launches, dm.sum_launches
+    dm._launch(a, w, Variant.PC3_TR, "splitk")
+    dm._launch(a[:, :dm.KC].contiguous(), w[:dm.KC].contiguous(),
+               Variant.PC3_TR, "splitk")
+    dm._launch(a, w, Variant.PC3_TR, "tile")
+    assert (dm.launches - n0, dm.sum_launches - s0) == (3, 1)
+    with pytest.raises(ValueError, match="approximate variants only"):
+        dm._launch(a, w, Variant.EXACT, "splitk")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 20, 40, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("heads", [(8, 2), (4, 4)])
+def test_tensor_core_exact_flash_matches_plain_version(cuda, d, causal, heads):
+    """bf16 exact flash (the tensor-core kernel) within the JAX suite's
+    exact bound, 2e-3 + 2e-2 |plain|, and within one bf16 rounding of the
+    plain version, 2**-7 |plain| + 2**-16 max|v| (chip_smoke.py's
+    FLASH_EXACT_ULP): D padded to a multiple of 16 (D = 20 also takes the
+    gather load), GQA and MHA, causal at a ragged S = 300, non-causal at
+    ragged Sq = 100, Skv = 200."""
+    h, kh = heads
+    sq, skv = (300, 300) if causal else (100, 200)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q = torch.randn((2, sq, h, d), generator=g, device=cuda).to(torch.bfloat16)
+    k = torch.randn((2, skv, kh, d), generator=g, device=cuda).to(torch.bfloat16)
+    v = torch.randn((2, skv, kh, d), generator=g, device=cuda).to(torch.bfloat16)
+    before = fa.launches
+    got = fa.flash_attention_bhsd(q, k, v, causal=causal)
+    ref = fa.flash_attention_bhsd_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    assert got.shape == q.shape and bool(torch.isfinite(got).all())
+    err = (got.float() - ref.float()).abs()
+    assert bool((err <= 2e-3 + 2e-2 * ref.float().abs()).all())
+    one_rounding = 2.0**-7 * ref.float().abs() + 2.0**-16 * v.float().abs().max()
+    assert bool((err <= one_rounding).all())

@@ -172,6 +172,83 @@ def test_gqa_approx_matches_jax_wrapper():
     np.testing.assert_allclose(_f32(got), _f32(ref), atol=APPROX_ATOL)
 
 
+def _tensor_core_exact_emulation(q, k, v, *, causal, split_p=True):
+    """The arithmetic of csrc/flash_attention.cu's tensor-core exact kernel
+    (flash_fwd_tc) in torch, on (B, S, H, D) bf16 tensors: 128-key tiles in
+    ascending order; scores as f32 sums of the exact f32 products of the
+    bf16 values; an f32 online softmax; p split into p_hi = bf16(p) and
+    p_lo = bf16(p - p_hi), and PV as p_hi v + p_lo v; o rounded to bf16.
+    ``split_p=False`` drops p_lo: one bf16 p, the design the split avoids."""
+    b, sq, h, d = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    k = k.repeat_interleave(h // kh, dim=2)
+    v = v.repeat_interleave(h // kh, dim=2)
+    qf, kf, vf = (t.transpose(1, 2).float() for t in (q, k, v))  # (B, H, S, D)
+    scale = tfa._scale(d)
+    q_pos = torch.arange(sq)[:, None]
+    m = torch.full((b, h, sq), -float("inf"))
+    l = torch.zeros((b, h, sq))
+    acc = torch.zeros((b, h, sq, d))
+    for k0 in range(0, skv, tfa.KERNEL_BLOCK_K):
+        kt = kf[:, :, k0:k0 + tfa.KERNEL_BLOCK_K]
+        vt = vf[:, :, k0:k0 + tfa.KERNEL_BLOCK_K]
+        s = (qf @ kt.transpose(-1, -2)) * scale
+        k_pos = k0 + torch.arange(kt.shape[2])[None, :]
+        mask = k_pos <= q_pos if causal else torch.ones_like(s, dtype=bool)
+        s = torch.where(mask, s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+        l = l * corr + p.sum(-1)
+        p_hi = p.to(torch.bfloat16).float()
+        p_lo = (p - p_hi).to(torch.bfloat16).float() if split_p else 0.0 * p
+        acc = acc * corr[..., None] + p_hi @ vt + p_lo @ vt
+        m = m_new
+    out = (acc / l.clamp(min=1e-30)[..., None]).to(torch.bfloat16)
+    return out.transpose(1, 2)
+
+
+TENSOR_CORE_SHAPES = [
+    ((1, 256, 256, 4, 2, 64), True),    # GQA, two KV tiles
+    ((1, 256, 256, 4, 2, 64), False),
+    ((2, 200, 200, 2, 2, 40), True),    # D = 40: not a multiple of 16
+    ((1, 100, 300, 4, 1, 16), False),   # ragged, MQA, a partial KV tile
+]
+
+
+@pytest.mark.parametrize("shape,causal", TENSOR_CORE_SHAPES)
+def test_tensor_core_exact_design_matches_interpreted_pallas(shape, causal):
+    """The numeric design of the exact tensor-core kernel, before any card
+    runs it: within the JAX suite's exact bound (2e-3 + 2e-2 |ref|) of the
+    reference's interpreted Pallas kernel (exact mode, bf16 inputs, 128-key
+    tiles). The split p keeps ~16 mantissa bits, so the design also stays
+    within one bf16 ulp (2**-7 |plain| + 1e-6) of the plain version, which
+    multiplies the f32 p."""
+    b, sq, skv, h, kh, d = shape
+    q, k, v = _qkv((b, sq, h, d), (b, skv, kh, d), jnp.bfloat16, 13)
+    ref = jfa.flash_attention_bhsd(q, k, v, causal=causal, interpret=True)
+    got = _tensor_core_exact_emulation(_t(q), _t(k), _t(v), causal=causal)
+    assert got.shape == ref.shape and got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_f32(got), _f32(ref), rtol=2e-2, atol=2e-3)
+    plain = tfa.flash_attention_bhsd_plain(_t(q), _t(k), _t(v), causal=causal)
+    _bf16_close(got, plain)
+
+
+@pytest.mark.parametrize("shape,causal", TENSOR_CORE_SHAPES)
+def test_one_bf16_p_breaks_the_one_rounding_bound(shape, causal):
+    """A control for the bound chip_smoke.py holds the card's tensor-core
+    kernel to, 2**-7 |plain| + 2**-16 max|v| (one bf16 rounding, and p kept
+    to 2**-16 of itself by the split): the same arithmetic with p rounded
+    once to bf16 (2**-8 of p) leaves the plain version by more."""
+    b, sq, skv, h, kh, d = shape
+    q, k, v = _qkv((b, sq, h, d), (b, skv, kh, d), jnp.bfloat16, 13)
+    got = _tensor_core_exact_emulation(_t(q), _t(k), _t(v), causal=causal,
+                                       split_p=False)
+    plain = tfa.flash_attention_bhsd_plain(_t(q), _t(k), _t(v), causal=causal)
+    bound = 2.0**-7 * np.abs(_f32(plain)) + 2.0**-16 * np.abs(_f32(_t(v))).max()
+    assert (np.abs(_f32(got) - _f32(plain)) > bound).any()
+
+
 def test_bf16_only_error_text_matches_jax():
     q = jnp.ones((1, 128, 16), jnp.float32)
     with pytest.raises(ValueError) as jerr:

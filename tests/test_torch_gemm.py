@@ -195,3 +195,105 @@ def test_gradients_match_jax_grad(backward):
                                atol=1e-5)
     np.testing.assert_allclose(tw.grad.numpy(), np.asarray(jdw), rtol=1e-5,
                                atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# daism_matmul_ordered: the kernel's own summation order (chunks of KC)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(5, 70, 33), (3, 200, 17), (4, 130, 40),
+                                   (2, 64, 8)])
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_ordered_oracle_matches_plain_and_jax_ref(shape, variant):
+    """The same products as the plain version and JAX's oracle, added in
+    another f32 order: tests/test_kernels.py:41's bounds."""
+    (ja, jw), (ta, tw) = _bf16_pair(*_data(*shape, seed=7))
+    got = dm.daism_matmul_ordered(ta, tw, Variant(variant)).numpy()
+    np.testing.assert_allclose(
+        got, dm.daism_matmul_plain(ta, tw, Variant(variant)).numpy(),
+        rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got, np.asarray(jref(ja, jw, JVariant(variant))),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("variant", ["fla", "hla", "pc3_tr"])
+def test_ordered_oracle_rows_do_not_depend_on_m(variant):
+    """A row's bits depend on that row of ``a`` and on ``w`` only, whatever
+    M and the other rows: the row-independence the kernel keeps on both of
+    its paths (a decode step's tokens do not depend on the batch)."""
+    _, (ta, tw) = _bf16_pair(*_data(12, 3 * dm.KC + 5, 30, seed=8))
+    full = dm.daism_matmul_ordered(ta, tw, Variant(variant))
+    for lo, hi in ((0, 1), (3, 7), (11, 12), (0, 12)):
+        part = dm.daism_matmul_ordered(ta[lo:hi], tw, Variant(variant))
+        assert torch.equal(part.view(torch.int32),
+                           full[lo:hi].view(torch.int32))
+
+
+@pytest.mark.parametrize("k", [1, 17, dm.KC])
+@pytest.mark.parametrize("variant", ["fla", "pc2", "pc3_tr"])
+def test_ordered_oracle_single_chunk_is_one_ascending_sum(k, variant):
+    """With K <= KC the order is one ascending f32 sum from 0, bit for bit
+    (products from core.floatmul, not from the oracle's own primitives)."""
+    from repro_torch.core.floatmul import approx_mul_to_f32
+
+    _, (ta, tw) = _bf16_pair(*_data(6, k, 9, seed=9))
+    prods = approx_mul_to_f32(ta[:, :, None], tw[None, :, :], Variant(variant))
+    want = torch.zeros((6, 9))
+    for i in range(k):
+        want = want + prods[:, i]
+    got = dm.daism_matmul_ordered(ta, tw, Variant(variant))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_ordered_oracle_chunks_are_summed_in_order():
+    """Past one chunk the total is 0 + part_0 + part_1 + ..., each part an
+    ascending sum of its KC products: bit for bit, on K = 2 KC + 3."""
+    from repro_torch.core.floatmul import approx_mul_to_f32
+
+    k = 2 * dm.KC + 3
+    _, (ta, tw) = _bf16_pair(*_data(3, k, 7, seed=10))
+    prods = approx_mul_to_f32(ta[:, :, None], tw[None, :, :], Variant.PC3_TR)
+    total = torch.zeros((3, 7))
+    for c0 in range(0, k, dm.KC):
+        part = torch.zeros((3, 7))
+        for i in range(c0, min(c0 + dm.KC, k)):
+            part = part + prods[:, i]
+        total = total + part
+    got = dm.daism_matmul_ordered(ta, tw, Variant.PC3_TR)
+    assert torch.equal(got.view(torch.int32), total.view(torch.int32))
+
+
+def test_ordered_oracle_refuses_exact():
+    a = torch.zeros((2, 4), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="approximate variants"):
+        dm.daism_matmul_ordered(a, a.t().contiguous(), Variant.EXACT)
+
+
+# ---------------------------------------------------------------------------
+# _plan: the one rule that picks the kernel's path (a speed choice only)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape,variant,plan", [
+    ((1, 2048, 2048), "pc3_tr", (1, 1)),      # one active request
+    ((4, 2048, 256), "pc3_tr", (1, 1)),       # k/v at decode: a row a block
+    ((4, 2048, 2048), "pc3_tr", (4, 1)),      # q/o at decode
+    ((4, 2048, 5632), "pc3_tr", (4, 4)),      # wi/wg at decode
+    ((4, 2048, 32000), "fla", (4, 4)),        # lm_head at decode
+    ((128, 2048, 256), "hla", (16, 1)),       # k/v of a prefill chunk
+    ((128, 2048, 5632), "pc3_tr", (16, 4)),   # small tile grid at M = 128
+    ((128, 2048, 32000), "pc3_tr", None),     # the lm_head's grid fills it
+    ((2048, 2048, 5632), "pc2", None),        # prefill
+    ((4, 2048, 5632), "exact", None),         # EXACT: the tile path only
+])
+def test_plan_picks_the_measured_path(shape, variant, plan):
+    """The shapes of TinyLlama's sites take the plans PERF.md measured."""
+    assert dm._plan(*shape, Variant(variant)) == plan
+
+
+def test_plan_forces_a_path_and_refuses_others():
+    assert dm._plan(2048, 2048, 5632, Variant.PC3_TR, "splitk") == (16, 4)
+    assert dm._plan(4, 2048, 5632, Variant.PC3_TR, "tile") is None
+    with pytest.raises(ValueError, match="path must be"):
+        dm._plan(4, 64, 64, Variant.PC3_TR, "fast")

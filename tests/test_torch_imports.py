@@ -77,3 +77,23 @@ def test_chip_smoke_refuses_outside_a_checkout(tmp_path):
                           timeout=120)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_kc_sweep_tool_imports_without_jax_and_needs_a_card():
+    """tools/gemm_kc_sweep.py (the K chunk's measurement) stands alone too,
+    and refuses to run without a card."""
+    code = (
+        "import runpy, sys\n"
+        "runpy.run_path('tools/gemm_kc_sweep.py', run_name='kc_sweep')\n"
+        "from repro_torch.kernels import build, daism_matmul\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    proc = _run("import runpy; runpy.run_path('tools/gemm_kc_sweep.py', "
+                "run_name='__main__')")
+    assert proc.returncode != 0
+    assert "needs a CUDA card" in proc.stderr
