@@ -12,14 +12,21 @@ the paged server through two policy tiers, the full-sequence
 the kernels' times beside their bounds. Phases:
 
 1. device   — the card's name and power limit (nvidia-smi);
-2. build    — nvcc of every kernel source, all started together, timed;
+2. build    — nvcc of every kernel source, all started together, timed,
+              with the -Xptxas -v lines; where cuobjdump exists, the HGMMA
+              (wgmma), HMMA and UTMALDG (TMA) instructions of the EXACT
+              kernels' SASS, which must hold HGMMA;
 3. kernels  — daism_matmul: (a) K = 1 outer products over every pair of
               normalized bf16 mantissas with mixed signs and exponents
               (underflow and overflow included): bit-identical to the plain
-              version for the six approximate variants; (b) the serving
-              path's GEMM shapes (decode M = 4, prefill M = 128) and ragged
+              version for the six approximate variants, EXACT within
+              2**-126 on every path (zero-padded to K = 8 for the TMA
+              paths; subnormal inputs must survive the tensor cores); (b)
+              the serving path's GEMM shapes (M = 1 to 128) and ragged
               edges past one M tile, for all seven variants within
-              gemm_rtol(K) * (|a| @ |w|) + 1e-6; (c) an f32 operand raises
+              gemm_rtol(K) * (|a| @ |w|) + 1e-6, EXACT forced onto each of
+              its paths (tile, split-K, edge), its largest error over
+              |a| @ |w| printed by path; (c) an f32 operand raises
               ValueError. flash_attention: (d) exact and the six approximate
               variants, D in {16, 32, 64, 128}, causal and not, GQA (H=32,
               KH=4), MHA and MQA, a ragged (B=2, Sq=100, Skv=72, H=4, KH=2)
@@ -59,7 +66,13 @@ the kernels' times beside their bounds. Phases:
 7. numbers  — kernel / plain / library times (CUDA events) and the bound
               at each shape, both GEMM paths timed at M = 1 to 128 (the
               split-K threshold's evidence) with the decode step's GEMM
-              total, the serve report, prefill and step times. The
+              total, the serve report, prefill and step times. EXACT is
+              timed on every path by CUDA graph replay over input copies
+              that exceed the L2 (device time; the wrapper's host cost is
+              printed apart), beside torch.mm(a, w,
+              out_dtype=torch.float32), the library call that computes the
+              same function on the tensor cores, and the f32-upcast
+              torch.matmul, the earlier yardstick. The
               outputs of the timed calls are held against each other at the
               main paths' own shapes: daism_matmul at the prefill GEMMs
               (M = 2048) and every train-step GEMM (forward and approximate
@@ -237,6 +250,48 @@ def cuda_time_ms(fn, reps: int, warmup: int = 1):
     return start.elapsed_time(end) / reps, out
 
 
+def cuda_graph_ms(fn, operands, reps: int = 20):
+    """(mean device time of ``fn(*operands[i % len(operands)])`` over
+    ``max(reps, len(operands))`` calls captured in one CUDA graph and
+    replayed, a copy of the last call's result). A call through a Python
+    wrapper costs tens of microseconds on the host, more than a small GEMM
+    takes on the card; replaying a graph times the card's work (and one
+    launch a kernel) alone. ``operands`` rotates through copies of the
+    inputs (``cold_copies``) so that each call finds them in device memory,
+    not in the 50 MB L2, as the bytes bound assumes. ``fn`` runs once
+    before the capture, so a first call's build and set-up stay outside
+    it."""
+    import torch
+
+    fn(*operands[0])
+    torch.cuda.synchronize()
+    calls = max(reps, len(operands))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            out = fn(*operands[i % len(operands)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    out = out.clone()
+    del graph
+    return start.elapsed_time(end) / calls, out
+
+
+def cold_copies(*tensors, total_bytes: float = 128e6):
+    """``[tensors, copy, copy, ...]``: enough copies that one pass through
+    them moves ``total_bytes`` (2.5x the H100's L2)."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    n = max(1, math.ceil(total_bytes / nbytes))
+    return [tensors] + [tuple(t.clone() for t in tensors)
+                        for _ in range(n - 1)]
+
+
 def bound(variant: str, m: int, k: int, n: int):
     """(bound_ms, bound_by, ops) for one (M,K) @ (K,N) GEMM: each input read
     once, the f32 output written once, against the operations it does."""
@@ -306,32 +361,59 @@ def check_kernel(device):
         got = dm.daism_matmul_kernel(a1, w1, v)
         ref = dm.daism_matmul_plain(a1, w1, v)
         torch.cuda.synchronize()
-        if v is Variant.EXACT:  # exact products; cuBLAS may flush subnormals
-            ok = bool(((got == ref) | ((got - ref).abs() <= 2.0**-126)).all())
+        if v is Variant.EXACT:
+            ok = exact_products_held(got, ref)
         else:
             ok = torch.equal(got.view(torch.int32), ref.view(torch.int32))
         if not ok:
             bad = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
             raise SystemExit(f"K=1 products of {v.value}: {bad} of "
                              f"{got.numel()} differ from the plain version")
+    # EXACT on every path: the TMA paths need K and N multiples of 8, so
+    # they take the same products zero-padded to K = 8 (zeros add nothing)
+    ref = dm.daism_matmul_plain(a1, w1, Variant.EXACT)
+    n1 = w1.shape[1]
+    a8 = torch.zeros((a1.shape[0], 8), dtype=torch.bfloat16, device=device)
+    w8 = torch.zeros((8, -(-n1 // 8) * 8), dtype=torch.bfloat16, device=device)
+    a8[:, :1], w8[:1, :n1] = a1, w1
+    for x, y, path in ((a1, w1, "edge"), (a8, w8, "edge"), (a8, w8, "tile"),
+                       (a8, w8, "splitk")):
+        got = dm._launch(x, y, Variant.EXACT, path)[:, :n1]
+        torch.cuda.synchronize()
+        if not exact_products_held(got, ref):
+            raise SystemExit(f"K={x.shape[1]} EXACT products on the {path} "
+                             "path differ from the plain version by more "
+                             "than 2**-126")
     log(f"  (a) K=1 products: {a1.shape[0]} x {w1.shape[1]} pairs; the six "
         "approximate variants bit-identical to the plain version, EXACT "
-        "within 2**-126")
+        "within 2**-126 (subnormal inputs kept, overflow to inf) on the "
+        "edge path, and zero-padded to K=8 on the tile, split-K and edge "
+        "paths")
 
     max_err = 0.0
+    exact_rel = {}  # EXACT path -> largest |kernel - plain| / (|a| @ |w|)
     shapes = [(m, k, n) for m in M_SHAPES for k, n in KN_SHAPES]
     shapes += RAGGED_SHAPES
     for m, k, n in shapes:
         a = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
         w = torch.randn((k, n), generator=gen, device=device).to(torch.bfloat16)
         for v in Variant:
-            got = dm.daism_matmul_kernel(a, w, v)
             ref = dm.daism_matmul_plain(a, w, v)
-            torch.cuda.synchronize()
-            err, _ = gemm_held(got, ref, a, w, f"{v.value} ({m},{k},{n})")
-            max_err = max(max_err, err)
+            paths = exact_paths(k, n) if v is Variant.EXACT else [None]
+            for path in paths:
+                got = dm._launch(a, w, v, path)
+                torch.cuda.synchronize()
+                err, rel = gemm_held(got, ref, a, w,
+                                     f"{v.value} ({m},{k},{n}) {path}")
+                max_err = max(max_err, err)
+                if v is Variant.EXACT:
+                    key = path or "default"
+                    exact_rel[key] = max(exact_rel.get(key, 0.0), rel)
     log(f"  (b) {len(shapes)} shapes x {len(Variant)} variants within "
-        f"gemm_rtol(K)*(|a|@|w|)+1e-6; max |kernel - plain| = {max_err:.6g}")
+        f"gemm_rtol(K)*(|a|@|w|)+1e-6 (EXACT forced on each of its paths); "
+        f"max |kernel - plain| = {max_err:.6g}; EXACT's largest error over "
+        "|a|@|w| by path: " + ", ".join(f"{p} {r:.3g}"
+                                        for p, r in exact_rel.items()))
 
     f32 = torch.zeros((4, 8), device=device)
     try:
@@ -341,6 +423,22 @@ def check_kernel(device):
     else:
         raise SystemExit("f32 operands were accepted by the kernel wrapper")
     return max_err
+
+
+def exact_products_held(got, ref) -> bool:
+    """EXACT's products against the plain version: equal (infs included)
+    or within 2**-126 (a product that underflows)."""
+    return bool(((got == ref) | ((got - ref).abs() <= 2.0**-126)).all())
+
+
+def exact_paths(k: int, n: int):
+    """EXACT's paths at a (., K) @ (K, N) shape of aligned operands, the
+    default (None) last: the TMA paths where ``_plan`` takes them."""
+    from repro_torch.core.config import Variant
+    from repro_torch.kernels import daism_matmul as dm
+
+    tma = dm._plan(1, k, n, Variant.EXACT)[0] != "edge"
+    return [p for p in dm.EXACT_PATHS if tma or p == "edge"] + [None]
 
 
 def gemm_held(got, ref, a, w, what):
@@ -898,31 +996,85 @@ def measure(device, variants):
         w = torch.randn((k, n), generator=gen, device=device).to(torch.bfloat16)
         a = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
         for v in case_variants:
+            if v == "exact":
+                row = measure_exact(a, w)
+                rows.append(row)
+                max_err = max(max_err, row["max_abs_err"])
+                continue
             ms, got = cuda_time_ms(lambda: dm.daism_matmul_kernel(a, w, v), 10)
             plain_ms, ref = cuda_time_ms(
                 lambda: dm.daism_matmul_plain(a, w, v), 1, warmup=0)
             err, rel = gemm_held(got, ref, a, w, f"{v} ({m},{k},{n})")
             max_err = max(max_err, err)
             del got, ref
-            lib_ms = None
-            if v == "exact":
-                lib_ms, _ = cuda_time_ms(
-                    lambda: torch.matmul(a.float(), w.float()), 10)
             b_ms, b_by, ops = bound(v, m, k, n)
             rows.append(dict(variant=v, m=m, k=k, n=n, ms=ms,
-                             plain_ms=plain_ms, library_ms=lib_ms,
+                             plain_ms=plain_ms, library_ms=None,
                              bound_ms=b_ms, bound_by=b_by, ops=ops,
                              max_abs_err=err, max_rel_err=rel))
-            lib = f"{lib_ms:.4f}" if lib_ms is not None else "-"
             log(f"  {v:7s} M={m:4d} K={k:5d} N={n:6d}  kernel "
                 f"{ms:9.4f} ms  plain {plain_ms:10.3f} ms  library "
-                f"{lib:>8s} ms  bound {b_ms:.4f} ms ({b_by}, "
+                f"{'-':>8s} ms  bound {b_ms:.4f} ms ({b_by}, "
                 f"{ops:.3e} ops)  {b_ms / ms * 100:5.1f}% of bound  "
                 f"|kernel - plain| {err:.3g} = {rel:.3g} (|a|@|w|) "
                 f"<= {gemm_rtol(k):.3g}")
         del a, w
         _free(device)
     return rows, max_err
+
+
+def mm_f32_out(a, w):
+    """The yardstick for EXACT: one PyTorch call computing the same
+    function on the tensor cores, a bf16 x bf16 product with f32
+    accumulation and f32 output."""
+    import torch
+
+    return torch.mm(a, w, out_dtype=torch.float32)
+
+
+def measure_exact(a, w):
+    """EXACT at one shape: every path's device time (CUDA graph replay
+    over copies of the inputs that do not fit the L2), each output held
+    against the plain version; the default path's time through the wrapper
+    (host clock included, inputs warm); the yardstick
+    ``torch.mm(a, w, out_dtype=torch.float32)`` and the earlier yardstick,
+    the f32-upcast ``torch.matmul(a.float(), w.float())``, both timed as
+    the kernel is. Returns the row for the kernels record."""
+    from repro_torch.core.config import Variant
+    from repro_torch.kernels import daism_matmul as dm
+
+    m, k = a.shape
+    n = w.shape[1]
+    plain_ms, ref = cuda_time_ms(
+        lambda: dm.daism_matmul_plain(a, w, Variant.EXACT), 1, warmup=0)
+    copies = cold_copies(a, w)
+    paths, err, rel = {}, 0.0, 0.0
+    for path in exact_paths(k, n)[:-1]:
+        paths[path], got = cuda_graph_ms(
+            lambda x, y: dm._launch(x, y, Variant.EXACT, path), copies)
+        e, r = gemm_held(got, ref, a, w, f"exact ({m},{k},{n}) {path}")
+        err, rel = max(err, e), max(rel, r)
+        del got
+    default = dm._plan(m, k, n, Variant.EXACT)[0]
+    wrapper_ms, _ = cuda_time_ms(
+        lambda: dm.daism_matmul_kernel(a, w, Variant.EXACT), 10)
+    lib_ms, lib_out = cuda_graph_ms(mm_f32_out, copies)
+    f32_ms, _ = cuda_graph_ms(lambda x, y: x.float() @ y.float(), copies)
+    gemm_held(lib_out, ref, a, w, f"torch.mm out_dtype=f32 ({m},{k},{n})")
+    del lib_out, ref, copies
+    ms = paths[default]
+    b_ms, b_by, ops = bound("exact", m, k, n)
+    log(f"  exact   M={m:4d} K={k:5d} N={n:6d}  kernel {ms:9.4f} ms "
+        f"({default}; " + ", ".join(f"{p} {t:.4f}" for p, t in paths.items())
+        + f"; through the wrapper {wrapper_ms:.4f})  plain {plain_ms:.3f} ms"
+        f"  torch.mm out f32 {lib_ms:.4f} ms  f32 matmul {f32_ms:.4f} ms  "
+        f"bound {b_ms:.4f} ms ({b_by})  {b_ms / ms * 100:5.1f}% of bound  "
+        f"{ms / lib_ms:.2f}x torch.mm  |kernel - plain| <= {rel:.3g} "
+        f"(|a|@|w|)")
+    return dict(variant="exact", m=m, k=k, n=n, ms=ms, path=default,
+                paths=paths, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                library_ms=lib_ms, f32_library_ms=f32_ms, bound_ms=b_ms,
+                bound_by=b_by, ops=ops, max_abs_err=err, max_rel_err=rel)
 
 
 def default_path(m, k, n):
@@ -1081,6 +1233,36 @@ def build_all():
         return dict(pool.map(one, KERNELS))
 
 
+def sass_counts(lib: Path, kernel: str):
+    """{function: {op: count}} of the wgmma (HGMMA), mma.sync (HMMA) and
+    TMA load (UTMALDG) instructions in the library's functions whose name
+    holds ``kernel``, by ``cuobjdump``; None where the toolkit has no
+    cuobjdump."""
+    import os
+    import shutil
+
+    cuobjdump = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                     "bin", "cuobjdump")
+    tool = str(cuobjdump) if cuobjdump.is_file() else shutil.which("cuobjdump")
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            if kernel in fn:
+                counts[fn] = dict.fromkeys(("HGMMA", "HMMA", "UTMALDG"), 0)
+        elif fn in counts and "*/" in line:  # /*addr*/ [@pred] OP.mods ...
+            words = [t for t in line.split("*/", 1)[1].split()
+                     if not t.startswith("@")]
+            opcode = words[0].split(".")[0] if words else ""
+            if opcode in counts[fn]:
+                counts[fn][opcode] += 1
+    return counts
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--layers", type=int, default=22,
@@ -1112,9 +1294,19 @@ def main(argv=None) -> int:
 
     log("== 2. build ==")
     t0 = time.perf_counter()
-    for lib, (path, sec) in build_all().items():
+    built = build_all()
+    for lib, (path, sec) in built.items():
         log(f"  built {path.relative_to(ROOT)} in {sec:.1f} s")
     log(f"  build wall {time.perf_counter() - t0:.1f} s")
+    counts = sass_counts(built["daism_matmul"][0], "exact_gemm")
+    if counts is None:
+        log("  no cuobjdump: SASS of the EXACT kernels not counted")
+    else:
+        for fn, c in counts.items():
+            log(f"  SASS of {fn}: " + ", ".join(f"{op} {n}"
+                                                for op, n in c.items()))
+        if not counts or not all(c["HGMMA"] for c in counts.values()):
+            raise SystemExit("the EXACT kernels hold no HGMMA (wgmma)")
 
     log("== 3. kernels vs plain versions ==")
     max_err = check_kernel(device)
@@ -1152,6 +1344,8 @@ def main(argv=None) -> int:
         log(f"  train step {i + 1} ({st['backward']}): {st['ms']:.1f} ms")
     rep = next(r for r in rows if (r["variant"], r["m"], r["k"], r["n"])
                == REPRESENTATIVE)
+    xrep = next(r for r in rows if (r["variant"], r["m"], r["k"], r["n"])
+                == ("exact", *REPRESENTATIVE[1:]))
     frep = {r["variant"]: r for r in frows}
     record = {"kernels": [{
         "name": "daism_matmul",
@@ -1168,6 +1362,10 @@ def main(argv=None) -> int:
         "variant": rep["variant"],
         "shape": [rep["m"], rep["k"], rep["n"]],
         "tile_path_ms": path_ms[REPRESENTATIVE[1:]]["tile"],
+        "exact": {k: xrep[k] for k in
+                  ("ms", "path", "paths", "wrapper_ms", "plain_ms",
+                   "bound_ms", "bound_by", "library_ms", "f32_library_ms")}
+        | {"shape": [xrep["m"], xrep["k"], xrep["n"]]},
     }, {
         "name": "flash_attention",
         "route": "cuda",

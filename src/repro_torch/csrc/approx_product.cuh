@@ -159,8 +159,4 @@ __device__ __forceinline__ float approx_product(const XFields& x,
                          x.sign ^ w.sign);
 }
 
-__device__ __forceinline__ float bf16_to_f32(uint16_t bits) {
-  return __uint_as_float(static_cast<uint32_t>(bits) << 16);
-}
-
 }  // namespace daism

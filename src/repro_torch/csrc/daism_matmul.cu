@@ -56,11 +56,18 @@
 //     adds the parts in ascending chunk order from 0.0;
 //   * ragged M/N/K edges load as raw zeros, whose zero mantissa gives a
 //     zero product (which leaves a part's value alone), so the wrapper pads
-//     nothing; rows past M are not computed;
-//   * EXACT is an f32 multiply-add of the bf16 values on the tile path's
-//     tiling (bf16 products are exact in f32), in plain ascending k order.
+//     nothing; rows past M are not computed.
 // Packing the fields, a 128 x 128 mantissa-product table in shared memory
 // and persistent tiles are left for later.
+//
+// EXACT (exact_gemm.cuh) is another kernel on the tensor cores: bf16
+// products are exact in f32, and EXACT's summation order is not part of its
+// function. It is bound by bytes up to M ~ 128 and by the bf16 tensor-core
+// rate above. Three paths: TMA-fed wgmma on 64 x 128 (M <= 64) or 128 x 256
+// tiles ("tile"); the same with K cut into slices where the tile grid would
+// leave SMs idle ("splitk": decode, the 128-row prefill chunk, k/v), the
+// slices' parts added by splitk_sum below; and the same kernel with plain
+// zero-filled loads for shapes and pointers TMA cannot take ("edge").
 
 #include <cuda_runtime.h>
 
@@ -68,6 +75,7 @@
 #include <cstdint>
 
 #include "approx_product.cuh"
+#include "exact_gemm.cuh"
 
 namespace {
 
@@ -347,84 +355,6 @@ __global__ void __launch_bounds__(256)
   out[i] = total;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    daism_matmul_exact(const uint16_t* __restrict__ a,
-                       const uint16_t* __restrict__ w,
-                       float* __restrict__ out, int M, int K, int N) {
-  __shared__ float xs[kBK][kBM + 1];
-  __shared__ float ws[kBK][kBN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
-
-  int rows = 0;
-#pragma unroll
-  for (int i = 0; i < kSub; ++i) rows += (m0 + ty + 16 * i < M);
-
-  float acc[kSub][kSub];
-#pragma unroll
-  for (int i = 0; i < kSub; ++i)
-#pragma unroll
-    for (int j = 0; j < kSub; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-#pragma unroll
-    for (int r = 0; r < (kBM * kBK) / kThreads; ++r) {
-      const int idx = tid + r * kThreads;
-      const int mm = idx / kBK;
-      const int kk = idx % kBK;
-      const int gm = m0 + mm;
-      const int gk = k0 + kk;
-      xs[kk][mm] = daism::bf16_to_f32(
-          (gm < M && gk < K) ? a[static_cast<size_t>(gm) * K + gk] : 0);
-    }
-#pragma unroll
-    for (int r = 0; r < (kBK * kBN) / kThreads; ++r) {
-      const int idx = tid + r * kThreads;
-      const int kk = idx / kBN;
-      const int nn = idx % kBN;
-      const int gk = k0 + kk;
-      const int gn = n0 + nn;
-      ws[kk][nn] = daism::bf16_to_f32(
-          (gk < K && gn < N) ? w[static_cast<size_t>(gk) * N + gn] : 0);
-    }
-    __syncthreads();
-
-    if (rows > 0) {
-#pragma unroll 4
-      for (int kk = 0; kk < kBK; ++kk) {
-        float wv[kSub];
-#pragma unroll
-        for (int j = 0; j < kSub; ++j) wv[j] = ws[kk][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < kSub; ++i) {
-          if (i < rows) {
-            const float xv = xs[kk][ty + 16 * i];
-#pragma unroll
-            for (int j = 0; j < kSub; ++j)
-              acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn(xv, wv[j]));
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < kSub; ++i) {
-    const int gm = m0 + ty + 16 * i;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < kSub; ++j) {
-      const int gn = n0 + tx + 16 * j;
-      if (gn < N) out[static_cast<size_t>(gm) * N + gn] = acc[i][j];
-    }
-  }
-}
-
 template <int V>
 int launch_tile(const uint16_t* a, const uint16_t* w, float* out, int M,
                 int K, int N, cudaStream_t s) {
@@ -494,12 +424,17 @@ int launch_approx(const uint16_t* a, const uint16_t* w, float* out, float* ws,
 // own constant).
 extern "C" int daism_matmul_chunk() { return kKc; }
 
-// `rows` 0 takes the tile path; else the split-K path (approximate variants
-// only) with row tiles of `rows` (1, 4 or 16) and `cols` columns a thread (1
-// or 4). `ws`: the split-K workspace of ceil(K / chunk) * M * N floats
-// (unused, and may be null, on the tile path or when K <= chunk). The caller
+// Approximate variants: `rows` 0 takes the tile path; else the split-K path
+// with row tiles of `rows` (1, 4 or 16) and `cols` columns a thread (1 or
+// 4). `ws`: the split-K workspace of ceil(K / chunk) * M * N floats (unused,
+// and may be null, on the tile path or when K <= chunk). The caller
 // guarantees M, N >= 1, K >= 0, ceil(M / 64) <= 65535 and, on the split-K
 // path, ceil(K / chunk) <= 65535 and ceil(M / rows) <= 65535.
+// EXACT: `rows` is the tile's rows (64 or 128; negative for the edge path's
+// plain loads, which any shape and alignment take; the TMA paths need
+// K % 8 == N % 8 == 0 and 16-byte-aligned a and w), `cols` the number of K
+// slices (1, or more with a workspace of cols * M * N floats). The caller
+// guarantees ceil(N / (2 |rows|)) <= 65535 and cols <= 65535.
 extern "C" int daism_matmul(const void* a, const void* w, void* out, void* ws,
                             int M, int K, int N, int variant, int rows,
                             int cols, void* stream) {
@@ -513,9 +448,14 @@ extern "C" int daism_matmul(const void* a, const void* w, void* out, void* ws,
         out, 0, sizeof(float) * static_cast<size_t>(M) * N, s));
   }
   if (variant == daism::kExact) {
-    if (rows) return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-    daism_matmul_exact<<<grid, kThreads, 0, s>>>(a16, w16, o, M, K, N);
+    const int slices = cols;
+    if (slices < 1) return static_cast<int>(cudaErrorInvalidValue);
+    const int err =
+        exact::launch(a16, w16, slices > 1 ? wsf : o, M, K, N, rows, slices, s);
+    if (err != 0 || slices == 1) return err;
+    const long long mn = static_cast<long long>(M) * N;
+    splitk_sum<<<static_cast<unsigned>((mn + 255) / 256), 256, 0, s>>>(
+        wsf, o, slices, mn);
     return static_cast<int>(cudaGetLastError());
   }
   int (*launch)(const uint16_t*, const uint16_t*, float*, float*, int, int,

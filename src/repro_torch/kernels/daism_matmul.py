@@ -17,9 +17,20 @@ the whole rule that picks them (and the split-K path's row tile and columns
 a thread). The chunk order makes their bits the same, and makes a row's
 bits independent of M.
 
+EXACT is another kernel on the tensor cores (``csrc/exact_gemm.cuh``):
+bf16 products are exact in f32 and EXACT's summation order is not part of
+its function, so its paths agree within f32 rounding, not bit for bit.
+Bytes bound it up to M ~ 128, the bf16 tensor-core rate above. Its paths,
+picked by the same :func:`_plan`: ``"tile"`` (TMA-fed ``wgmma`` on 64 x 128
+tiles up to M = 64, 128 x 256 above), ``"splitk"`` (the same with K cut
+into slices where the tile grid leaves SMs idle, the parts added by a
+second pass) and ``"edge"`` (the same kernel with plain zero-filled loads,
+for K or N not a multiple of 8 or operands not 16-byte aligned).
+
 ``launches`` counts GEMM calls that launched the kernel (one per call,
-whatever the path), ``sum_launches`` the split-K path's second pass (the
-chunk sum), so a run can show that its main path went through the kernel.
+whatever the path), ``sum_launches`` the split-K paths' second pass (the
+sum of the chunks or K slices), so a run can show that its main path went
+through the kernel.
 """
 from __future__ import annotations
 
@@ -56,6 +67,15 @@ SPLIT_K_TILE_BLOCKS = 2 * 132
 # 132 SMs' 4 schedulers two warps; below it a plan spreads the work thinner.
 SPLIT_K_MIN_THREADS = 132 * 4 * 2 * 32
 _MAX_GRID = 65535
+# EXACT (csrc/exact_gemm.cuh): tiles of 64 x 128 (one consumer warpgroup)
+# or 128 x 256 (two); K in stages of 64. A grid of fewer than EXACT_WAVE
+# tiles (one an SM) is cut into K slices until it fills one wave; 128-row
+# tiles where M > 64 and each block then still walks EXACT_DEEP_STAGES
+# stages a slice (or needs no slices). Measured on the H100 (PERF.md).
+EXACT_PATHS = ("tile", "splitk", "edge")
+EXACT_BK = 64
+EXACT_WAVE = 132
+EXACT_DEEP_STAGES = 16
 
 launches = 0
 sum_launches = 0
@@ -91,20 +111,37 @@ def _check_operands(a: torch.Tensor, w: torch.Tensor) -> None:
 
 
 def _plan(m: int, k: int, n: int, variant: Variant,
-          path: Optional[str] = None, kc: int = KC) -> Optional[tuple]:
-    """How an (M, K) @ (K, N) call runs: ``None`` for the tile path, else the
-    split-K path's (rows a block, columns a thread). ``path`` (``"tile"`` or
-    ``"splitk"``) forces the path; ``None`` picks it by shape (see
-    :data:`SPLIT_K_MAX_M`). The split-K plan takes 4 columns a thread (their
-    w as one 8-byte load, each x field shared by 4 products) while the grid
-    keeps :data:`SPLIT_K_MIN_THREADS`, else 1 (4x the threads); row tiles of
-    4 (a decode batch) or 16, and of 1 for one row or a narrow GEMM (k/v at
-    decode), which gives each row its own blocks. Measured on the H100:
-    PERF.md."""
+          path: Optional[str] = None, kc: int = KC,
+          aligned: bool = True) -> Optional[tuple]:
+    """How an (M, K) @ (K, N) call runs. ``path`` forces a path; ``None``
+    picks it by shape. The one rule for every variant; a speed choice only
+    (PERF.md has the measurements).
+
+    Approximate variants: ``None`` for the tile path, else the split-K
+    path's (rows a block, columns a thread); ``path`` is ``"tile"`` or
+    ``"splitk"`` (see :data:`SPLIT_K_MAX_M`). The split-K plan takes 4
+    columns a thread (their w as one 8-byte load, each x field shared by 4
+    products) while the grid keeps :data:`SPLIT_K_MIN_THREADS`, else 1 (4x
+    the threads); row tiles of 4 (a decode batch) or 16, and of 1 for one
+    row or a narrow GEMM (k/v at decode), which gives each row its own
+    blocks.
+
+    EXACT: ``(path, tile rows, K slices)``, ``path`` one of
+    :data:`EXACT_PATHS`. ``aligned`` says both operands start on 16 bytes;
+    with K and N multiples of 8 the TMA paths take the call, else the edge
+    path. The K slices fill one wave of :data:`EXACT_WAVE` blocks where
+    the tile grid is smaller (decode, the 128-row prefill chunk), with no
+    empty slice; tiles of 128 rows where M > 64 and the slices would keep
+    :data:`EXACT_DEEP_STAGES` stages each (or are not needed), else of 64
+    (decode, the prefill chunk, k/v at M = 2048). Forcing ``"tile"`` takes
+    one slice, ``"splitk"`` at least two where K has two stages, ``"edge"``
+    the default's slices."""
+    if Variant(variant) is Variant.EXACT:
+        return _exact_plan(m, k, n, path, aligned)
     if path is None:
         tile_blocks = -(-m // BLOCK_M) * -(-n // BLOCK_M)
-        split = Variant(variant) is not Variant.EXACT and m <= SPLIT_K_MAX_M \
-            and (m <= SPLIT_K_ALWAYS_M or tile_blocks < SPLIT_K_TILE_BLOCKS)
+        split = m <= SPLIT_K_MAX_M and (
+            m <= SPLIT_K_ALWAYS_M or tile_blocks < SPLIT_K_TILE_BLOCKS)
     elif path in ("tile", "splitk"):
         split = path == "splitk"
     else:
@@ -117,6 +154,34 @@ def _plan(m: int, k: int, n: int, variant: Variant,
     rows = 4 if m <= 4 else 16
     wide = -(-n // 4) * chunks * -(-m // rows) >= SPLIT_K_MIN_THREADS
     return rows, 4 if wide else 1
+
+
+def _exact_plan(m: int, k: int, n: int, path: Optional[str],
+                aligned: bool) -> tuple:
+    """:func:`_plan` for EXACT: ``(path, tile rows, K slices)``."""
+    if path is not None and path not in EXACT_PATHS:
+        raise ValueError(f"EXACT's path must be one of {EXACT_PATHS}, got "
+                         f"{path!r}")
+    tma = aligned and k % 8 == 0 and n % 8 == 0
+    if path in ("tile", "splitk") and not tma:
+        raise ValueError(f"the TMA paths need K and N multiples of 8 and "
+                         f"16-byte-aligned operands, got ({m}, {k}, {n})")
+    stages = max(1, -(-k // EXACT_BK))
+    big = max(1, -(-m // 128) * -(-n // 256))
+    big_slices = max(1, EXACT_WAVE // big)
+    if m > 64 and (big_slices == 1 or stages >= EXACT_DEEP_STAGES * big_slices):
+        rows, tiles = 128, big
+    else:
+        rows, tiles = 64, max(1, -(-m // 64) * -(-n // 128))
+    slices = max(1, min(EXACT_WAVE // tiles, stages))
+    if path == "tile":
+        slices = 1
+    elif path == "splitk":
+        slices = max(slices, min(2, stages))
+    slices = -(-stages // -(-stages // slices))  # no empty slice
+    if path is None:
+        path = "edge" if not tma else "tile" if slices == 1 else "splitk"
+    return path, rows, slices
 
 
 def daism_matmul_kernel(a: torch.Tensor, w: torch.Tensor,
@@ -133,9 +198,10 @@ def daism_matmul_kernel(a: torch.Tensor, w: torch.Tensor,
 def _launch(a: torch.Tensor, w: torch.Tensor, variant: Variant,
             path: Optional[str] = None) -> torch.Tensor:
     """:func:`daism_matmul_kernel` with the path forced (``"tile"`` or
-    ``"splitk"``) or, for ``None``, picked by shape. Every path gives the
-    same bits (the tests and chip_smoke.py force each to show it); EXACT has
-    the tile path only."""
+    ``"splitk"``, and for EXACT also ``"edge"``) or, for ``None``, picked by
+    :func:`_plan`. An approximate variant's paths give the same bits, and
+    EXACT's agree within f32 summation order (the tests and chip_smoke.py
+    force each to show it)."""
     global launches, sum_launches
     _check_operands(a, w)
     if a.device.type != "cuda" or w.device != a.device:
@@ -146,21 +212,27 @@ def _launch(a: torch.Tensor, w: torch.Tensor, variant: Variant,
     variant = Variant(variant)
     m, k = a.shape
     n = w.shape[1]
-    plan = _plan(m, k, n, variant, path)
-    if plan is not None and variant is Variant.EXACT:
-        raise ValueError("the split-K path runs the approximate variants only")
-    chunks = -(-k // KC)
-    grid = (chunks, -(-m // plan[0])) if plan else (-(-m // BLOCK_M),)
+    if variant is Variant.EXACT:
+        aligned = a.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+        exact_path, rows, parts = _plan(m, k, n, variant, path,
+                                        aligned=aligned)
+        grid = (-(-n // (2 * rows)), parts)
+        rows = -rows if exact_path == "edge" else rows
+        cols = parts
+    else:
+        plan = _plan(m, k, n, variant, path)
+        parts = -(-k // KC) if plan else 1
+        grid = (parts, -(-m // plan[0])) if plan else (-(-m // BLOCK_M),)
+        rows, cols = plan or (0, 0)
     if max(m, k, n) >= 2**31 or max(grid) > _MAX_GRID:
         raise ValueError(f"shape ({m}, {k}, {n}) exceeds the kernel's grid")
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     if m == 0 or n == 0:
         return out
-    second_pass = plan is not None and chunks > 1
-    ws = (torch.empty((chunks, m, n), dtype=torch.float32, device=a.device)
+    second_pass = parts > 1
+    ws = (torch.empty((parts, m, n), dtype=torch.float32, device=a.device)
           if second_pass else None)
     fn = _launch_c or _bind()
-    rows, cols = plan or (0, 0)
     args = (a.data_ptr(), w.data_ptr(), out.data_ptr(),
             ws.data_ptr() if ws is not None else None, m, k, n,
             VARIANT_IDS[variant], rows, cols,
@@ -206,7 +278,8 @@ def daism_matmul_ordered(a: torch.Tensor, w: torch.Tensor,
     variant = Variant(variant)
     if variant is Variant.EXACT:
         raise ValueError("daism_matmul_ordered is the approximate variants' "
-                         "oracle; EXACT sums in plain ascending k order")
+                         "oracle; EXACT's summation order is not part of its "
+                         "function")
     m, k = a.shape
     n = w.shape[1]
     xf, wf = decompose_bf16_i32(a), decompose_bf16_i32(w)

@@ -153,8 +153,70 @@ def test_split_k_counts_its_second_pass(cuda):
                Variant.PC3_TR, "splitk")
     dm._launch(a, w, Variant.PC3_TR, "tile")
     assert (dm.launches - n0, dm.sum_launches - s0) == (3, 1)
-    with pytest.raises(ValueError, match="approximate variants only"):
-        dm._launch(a, w, Variant.EXACT, "splitk")
+    with pytest.raises(ValueError, match="path must be"):
+        dm._launch(a, w, Variant.PC3_TR, "edge")
+
+
+def _exact_held(got, ref, a, w):
+    """chip_smoke.py's gemm_held bound: another f32 summation order of the
+    same exact products."""
+    k = a.shape[1]
+    rtol = 4e-4 * max(1.0, k / 5632)
+    bound = rtol * (a.double().abs() @ w.double().abs()) + 1e-6
+    return bool(torch.isfinite(got).all()) and bool(
+        ((got.double() - ref.double()).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 2048, 1024), (130, 296, 136),
+                                   (200, 1000, 520), (37, 300, 130),
+                                   (5, 70, 33), (1, 1, 1)])
+def test_exact_paths_match_plain_version(cuda, shape):
+    """EXACT forced onto each of its paths: the TMA paths (tile, split-K) at
+    K and N multiples of 8, ragged past the tiles or not, the edge path
+    everywhere; each within the gemm_held bound of the plain version, one
+    launch a call whatever the path. A TMA path refuses the other shapes."""
+    m, k, n = shape
+    g = torch.Generator(device=cuda).manual_seed(5)
+    a = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
+    w = torch.randn((k, n), generator=g, device=cuda).to(torch.bfloat16)
+    ref = dm.daism_matmul_plain(a, w, Variant.EXACT)
+    tma = dm._plan(m, k, n, Variant.EXACT)[0] != "edge"
+    for path in dm.EXACT_PATHS + (None,):
+        if path in ("tile", "splitk") and not tma:
+            with pytest.raises(ValueError, match="TMA paths need"):
+                dm._launch(a, w, Variant.EXACT, path)
+            continue
+        n0, s0 = dm.launches, dm.sum_launches
+        got = dm._launch(a, w, Variant.EXACT, path)
+        torch.cuda.synchronize()
+        slices = dm._plan(m, k, n, Variant.EXACT, path)[2]
+        assert (dm.launches - n0, dm.sum_launches - s0) == (1, slices > 1)
+        assert _exact_held(got, ref, a, w), path
+
+
+@pytest.mark.cuda
+def test_exact_keeps_subnormal_inputs_and_overflows_to_inf(cuda):
+    """K = 1 products of bf16 subnormals (0x7F, 0x40, 0x01) with values of
+    exponent 254 are normal; products past f32's range are inf. Every path
+    (the TMA paths on the same products zero-padded to K = 8) gives the
+    plain version's products within 2**-126."""
+    bits = torch.tensor([0x7F, 0x40, 0x01, 0x7F7F, 0x7F00, 0x3F80, 0x0080,
+                         0x8000 | 0x7F, 0x8000 | 0x7F7F], device=cuda)
+    x = torch.where(bits >= 0x8000, bits - 0x10000, bits).to(
+        torch.int16).view(torch.bfloat16)
+    a1, w1 = x[:, None].contiguous(), x[None, :].contiguous()
+    ref = dm.daism_matmul_plain(a1, w1, Variant.EXACT)
+    assert bool(torch.isinf(ref).any()) and bool((ref.abs() > 1).any())
+    a8 = torch.zeros((x.numel(), 8), dtype=torch.bfloat16, device=cuda)
+    w8 = torch.zeros((8, 16), dtype=torch.bfloat16, device=cuda)
+    a8[:, :1], w8[:1, :x.numel()] = a1, w1
+    for a, w, path in ((a1, w1, "edge"), (a8, w8, "edge"), (a8, w8, "tile"),
+                       (a8, w8, "splitk")):
+        got = dm._launch(a, w, Variant.EXACT, path)[:, :x.numel()]
+        torch.cuda.synchronize()
+        assert bool(((got == ref) | ((got - ref).abs() <= 2.0**-126)).all()), \
+            path
 
 
 @pytest.mark.cuda

@@ -285,7 +285,19 @@ def test_ordered_oracle_refuses_exact():
     ((128, 2048, 5632), "pc3_tr", (16, 4)),   # small tile grid at M = 128
     ((128, 2048, 32000), "pc3_tr", None),     # the lm_head's grid fills it
     ((2048, 2048, 5632), "pc2", None),        # prefill
-    ((4, 2048, 5632), "exact", None),         # EXACT: the tile path only
+    # EXACT: (path, tile rows, K slices)
+    ((4, 2048, 5632), "exact", ("splitk", 64, 3)),       # wi/wg at decode
+    ((1, 2048, 2048), "exact", ("splitk", 64, 8)),       # one request, q/o
+    ((1, 2048, 256), "exact", ("splitk", 64, 32)),       # k/v: 32 stages
+    ((4, 2048, 32000), "exact", ("tile", 64, 1)),        # lm_head at decode
+    ((128, 2048, 5632), "exact", ("tile", 64, 1)),       # the prefill chunk
+    ((128, 5632, 2048), "exact", ("splitk", 64, 4)),
+    ((128, 2048, 32000), "exact", ("tile", 128, 1)),
+    ((2048, 2048, 5632), "exact", ("tile", 128, 1)),     # prefill
+    ((2048, 2048, 256), "exact", ("splitk", 64, 2)),     # prefill k/v
+    ((512, 32000, 2048), "exact", ("splitk", 128, 4)),   # train lm_head da
+    ((5, 70, 33), "exact", ("edge", 64, 2)),             # K, N not 8-aligned
+    ((130, 300, 130), "exact", ("edge", 64, 5)),
 ])
 def test_plan_picks_the_measured_path(shape, variant, plan):
     """The shapes of TinyLlama's sites take the plans PERF.md measured."""
@@ -297,3 +309,52 @@ def test_plan_forces_a_path_and_refuses_others():
     assert dm._plan(4, 2048, 5632, Variant.PC3_TR, "tile") is None
     with pytest.raises(ValueError, match="path must be"):
         dm._plan(4, 64, 64, Variant.PC3_TR, "fast")
+    with pytest.raises(ValueError, match="path must be"):
+        dm._plan(4, 64, 64, Variant.PC3_TR, "edge")
+
+
+@pytest.mark.parametrize("shape", [(4, 2048, 5632), (2048, 2048, 2048),
+                                   (130, 296, 136), (1, 8, 8)])
+def test_exact_plan_forces_each_path(shape):
+    """Forcing keeps the shape's tile rows: ``tile`` one slice, ``splitk``
+    at least two where K has two stages, ``edge`` the default's slices;
+    every slice count leaves no slice empty."""
+    m, k, n = shape
+    default = dm._plan(m, k, n, Variant.EXACT)
+    stages = -(-k // dm.EXACT_BK)
+    for path in dm.EXACT_PATHS:
+        got, rows, slices = dm._plan(m, k, n, Variant.EXACT, path)
+        assert (got, rows) == (path, default[1])
+        assert 1 <= slices <= stages
+        assert -(-stages // slices) * (slices - 1) < stages
+    assert dm._plan(m, k, n, Variant.EXACT, "tile")[2] == 1
+    assert dm._plan(m, k, n, Variant.EXACT, "splitk")[2] >= min(2, stages)
+    assert dm._plan(m, k, n, Variant.EXACT, "edge")[2] == default[2]
+
+
+def test_exact_plan_takes_the_edge_path_where_tma_cannot():
+    """TMA needs K and N multiples of 8 and 16-byte-aligned operands: other
+    calls take the edge path by default and refuse a forced TMA path."""
+    assert dm._plan(4, 2048, 5632, Variant.EXACT, aligned=False)[0] == "edge"
+    for shape in ((5, 70, 33), (4, 2048, 5630), (4, 2044, 5632)):
+        assert dm._plan(*shape, Variant.EXACT)[0] == "edge"
+        for path in ("tile", "splitk"):
+            with pytest.raises(ValueError, match="TMA paths need"):
+                dm._plan(*shape, Variant.EXACT, path)
+    with pytest.raises(ValueError, match="EXACT's path must be"):
+        dm._plan(4, 64, 64, Variant.EXACT, "fast")
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_exact_pallas_spelling_matches_interpreted_pallas_kernel(shape):
+    """The port's EXACT through ``daism_matmul_pallas`` (on CPU tensors, the
+    kernel's plain version) against the JAX package's Pallas EXACT branch,
+    interpreted: exact bf16 products summed in f32 in two orders,
+    tests/test_kernels.py:41's bounds."""
+    (ja, jw), (ta, tw) = _bf16_pair(*_data(*shape, seed=11))
+    ref = jpallas(ja, jw, JConfig(variant=JVariant.EXACT,
+                                  backend=JBackend.PALLAS, interpret=True))
+    got = daism_matmul_pallas(ta, tw, DaismConfig(variant=Variant.EXACT,
+                                                  backend=Backend.PALLAS))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+                               rtol=RTOL, atol=ATOL)

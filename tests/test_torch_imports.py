@@ -97,3 +97,23 @@ def test_kc_sweep_tool_imports_without_jax_and_needs_a_card():
                 "run_name='__main__')")
     assert proc.returncode != 0
     assert "needs a CUDA card" in proc.stderr
+
+
+@pytest.mark.parametrize("tool", ["tools/exact_plan_sweep.py",
+                                  "tools/ab_trees.py"])
+def test_exact_and_ab_tools_import_without_jax(tool):
+    """The EXACT plan's sweep and the parent-vs-change comparison stand
+    alone too; the sweep refuses to run without a card."""
+    code = (
+        "import runpy, sys\n"
+        f"runpy.run_path({tool!r}, run_name='tool')\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    if tool.endswith("ab_trees.py") or torch.cuda.is_available():
+        return
+    proc = _run(f"import runpy; runpy.run_path({tool!r}, run_name='__main__')")
+    assert proc.returncode != 0
+    assert "needs a CUDA card" in proc.stderr
