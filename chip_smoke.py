@@ -7,9 +7,11 @@ Builds the CUDA kernels from the sources in ``src/repro_torch/csrc``, holds
 each against its plain PyTorch version on the card, drives the port's main
 paths at TinyLlama-1.1B's published width (random bf16 weights from a seed):
 the paged server through two policy tiers, the full-sequence
-``prefill_step`` with and without the flash-attention kernel, and the
-``train_step`` with straight-through and approximate backward, and prints
-the kernels' times beside their bounds. Phases:
+``prefill_step`` with and without the flash-attention kernel, the
+``train_step`` with straight-through and approximate backward, slot-cache
+generation, the training launcher with a checkpoint, a preemption and a
+resume, and the paper's CNNs (VGG-16, LeNet-5) through the im2col GEMM,
+and prints the kernels' times beside their bounds. Phases:
 
 1. device   — the card's name and power limit (nvidia-smi);
 2. build    — nvcc of every kernel source, all started together, timed,
@@ -81,10 +83,37 @@ the kernels' times beside their bounds. Phases:
               (d) bounds, with controls that must break them: the exact and
               FLA kernels against the PC3_TR plain break the approximate
               bound, and exact attention with one bf16 p (no p_lo) breaks
-              the one-ulp bound.
+              the one-ulp bound. The CNNs' im2col GEMMs (IM2COL_SHAPES:
+              VGG-16 at B = 32, K = 27 to 4608, N = 10 to 512; LeNet-5 at
+              B = 64, K = 25 to 784, N = 6 to 120) are timed and held the
+              same way;
+8. generate — slot caches at full width and depth: ``prefill`` of 4
+              prompts of 32 tokens and 16 greedy ``decode_step``s on a
+              scalar-``pos`` cache of 64, then a per-slot run (``(B,)``
+              ``pos``, prompt lengths 32/20/26/12); the kernel launches
+              its 155 sites x 17 calls in each; every decode step's
+              logits against a full-sequence forward over the same tokens
+              (PREFILL_APPROX_REL; greedy tokens agree on every row whose
+              top-2 gap exceeds the deviation); ms per decode step;
+9. train driver — ``repro_torch.launch.train.main`` at full width and 2
+              layers (B = 2, S = 256, 6 steps, a checkpoint every 3 into
+              ``build/``, removed afterwards): its loss lines, 6 x 15
+              kernel launches; then ``fault_tolerance.run`` preempted
+              (SimulatedPreemption) before step 5 and run again from a
+              fresh init: it resumes at step 3 with params and optimizer
+              state equal, bit for bit, to an in-memory copy of the step-3
+              state, and reaches step 6 with a finite loss; checkpoint
+              bytes and save / restore times;
+10. cnn     — VGG-16 at its published widths (B = 32, 32x32x3) and LeNet-5
+              (B = 64) in bf16 under PC3_TR: a forward through the kernel
+              (15 and 5 launches) against the jnp backend's forward on the
+              card (tests/test_torch_cnn.py's bound; labels agree where
+              the top-2 gap exceeds the deviation), 3 straight-through and
+              1 approximate-backward train steps with finite loss and the
+              launches the sites imply; ms per forward and per step.
 
-Every check raises on failure and nothing is caught (checks 3c and 6 expect
-their errors), so any failure exits non-zero before the final line. TF32 is
+Every check raises on failure and nothing is caught (checks 3c, 6 and 9
+expect their errors), so any failure exits non-zero before the final line. TF32 is
 off for every f32 matmul here.
 The last two lines are the JSON kernel record and the result line.
 """
@@ -213,6 +242,38 @@ TRAIN_BATCH, TRAIN_SEQ = 2, 256
 # times the sum of their magnitudes (3.4e-4 at K = 5632, hence 4e-4 there),
 # and it grows linearly in K: 2.27e-3 at the lm_head backward's K = 32000.
 GEMM_RTOL_K, GEMM_RTOL = 5632, 4e-4
+
+
+# phase 8: slot-cache generation at full width. The decode logits are
+# held against a full-sequence forward over the same tokens: the GEMM
+# kernel's rows do not depend on M, so the GEMMs agree bit for bit, but
+# attention over the 64-cell cache (masked cells, another chunking) sums
+# in another order than the forward's, which rounds some bf16 attention
+# outputs one ulp apart, and the approximate GEMMs amplify that over 22
+# layers as in phase 5: PREFILL_APPROX_REL bounds it, and greedy tokens
+# must agree on every row whose top-2 gap exceeds the deviation.
+GEN_POLICY = "*=pc3_tr:pallas"
+GEN_BATCH, GEN_PROMPT, GEN_STEPS, GEN_MAX_SEQ = 4, 32, 16, 64
+GEN_LENS = (32, 20, 26, 12)   # the per-slot run's staggered prompt lengths
+# phase 9: the training driver, at full width and 2 layers (each
+# checkpoint ~3 GB: bf16 params plus f32 master, m and v)
+DRIVER_LAYERS, DRIVER_STEPS, DRIVER_EVERY = 2, 6, 3
+DRIVER_PREEMPT = 4            # fault_hook raises before this step
+# phase 10: the paper's CNNs in bf16 (as benchmarks/accuracy.py casts its
+# bf16 rows), (net, batch, image shape, noise, seed of image_batches); the
+# kernel's forward is held against the jnp backend's on the card within
+# tests/test_torch_cnn.py's BF16_PALLAS_REL (measured there on the CPU)
+CNN_RUNS = (("vgg16", 32, (32, 32, 3), 0.9, 1),
+            ("lenet5", 64, (28, 28, 1), 0.5, 0))
+CNN_BF16_REL = {"lenet5": 2e-2, "vgg16": 0.15}
+# VGG-16's im2col GEMMs at B = 32 (M = 32 * Ho * Wo, K = 9 * cin, N = cout)
+# and its two FCs, then LeNet-5's at B = 64 (K = 25 * cin), timed in phase 7
+IM2COL_SHAPES = [(32768, 27, 64), (32768, 576, 64), (8192, 576, 128),
+                 (8192, 1152, 128), (2048, 1152, 256), (2048, 2304, 256),
+                 (512, 2304, 512), (512, 4608, 512), (128, 4608, 512),
+                 (32, 512, 512), (32, 512, 10),
+                 (50176, 25, 6), (12544, 150, 16), (64, 784, 120),
+                 (64, 120, 84), (64, 84, 10)]
 
 
 def gemm_rtol(k: int) -> float:
@@ -991,6 +1052,7 @@ def measure(device, variants):
     cases = [(m, k, n, variants) for k, n in KN_SHAPES for m in M_SHAPES]
     cases += [(m, k, n, ["pc3_tr", "exact"])
               for m, k, n in PREFILL_GEMM_SHAPES + TRAIN_GEMM_SHAPES]
+    cases += [(m, k, n, ["pc3_tr"]) for m, k, n in IM2COL_SHAPES]
     max_err = 0.0
     for m, k, n, case_variants in cases:
         w = torch.randn((k, n), generator=gen, device=device).to(torch.bfloat16)
@@ -1217,6 +1279,442 @@ def measure_flash(device):
     return rows, max(errs["exact"], errs["approx"])
 
 
+# ---------------------------------------------------------------------------
+# phase 8: generate (slot caches)
+# ---------------------------------------------------------------------------
+
+def generate(device, cfg):
+    """``prefill`` and greedy ``decode_step`` on slot caches at full width:
+    a scalar-``pos`` cache, then a per-slot ``(B,)`` ``pos`` with staggered
+    prompt lengths; each run's logits against a full-sequence forward.
+    Returns (records, GEMM kernel launches, ms per decode step)."""
+    import torch
+
+    from repro_torch.data import lm_batches
+    from repro_torch.kernels import daism_matmul as dm
+    from repro_torch.launch.steps import build_artifacts
+
+    art = build_artifacts(cfg.with_policy(GEN_POLICY), device=device)
+    params = art.init_params(0)
+    prompts = torch.from_numpy(next(lm_batches(
+        cfg.vocab, GEN_BATCH, GEN_PROMPT, seed=3))["tokens"]).to(device).long()
+    per_fwd = approx_launches_per_step(art.model)
+    rows = torch.arange(GEN_BATCH, device=device)
+    records, launches, decode_ms = {}, 0, []
+    for label, lens in (("scalar pos", (GEN_PROMPT,) * GEN_BATCH),
+                        ("per-slot pos", GEN_LENS)):
+        lens_t = torch.tensor(lens, device=device)
+        dm.launches = 0
+        cache = art.init_cache(GEN_BATCH, GEN_MAX_SEQ)
+        with torch.no_grad():
+            logits, cache = art.model.prefill(params, prompts, cache)
+        if label == "per-slot pos":
+            cache = dict(cache, pos=lens_t.to(torch.int32))
+        nxt = logits[rows, lens_t - 1].argmax(-1)[:, None]
+        outs, gen = [], []
+        for _ in range(GEN_STEPS):
+            gen.append(nxt)
+            t0 = time.perf_counter()
+            logits, cache = art.decode_step(params, nxt, cache)
+            _sync(device)
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+            outs.append(logits[:, 0])
+            nxt = logits[:, 0].argmax(-1)[:, None]
+        n = dm.launches
+        launches += n
+        want = per_fwd * (1 + GEN_STEPS)
+        if n != want:
+            raise SystemExit(f"generate ({label}): daism_matmul launched {n} "
+                             f"times; prefill + {GEN_STEPS} decode steps "
+                             f"imply {want}")
+        got = torch.stack(outs, 1)                     # (B, steps, V)
+        if not bool(torch.isfinite(got).all()):
+            raise SystemExit(f"generate ({label}): decode logits not finite")
+        if label == "scalar pos" and int(cache["pos"]) != \
+                GEN_PROMPT + GEN_STEPS:
+            raise SystemExit(f"generate: pos {int(cache['pos'])} after "
+                             f"{GEN_STEPS} steps")
+        # the same tokens through one causal forward: row i's prompt (its
+        # true length) and its generated tokens, right-padded
+        seq = torch.zeros((GEN_BATCH, GEN_PROMPT + GEN_STEPS),
+                          dtype=torch.long, device=device)
+        at = lens_t[:, None] + torch.arange(GEN_STEPS, device=device)
+        for i, length in enumerate(lens):
+            seq[i, :length] = prompts[i, :length]
+        seq[rows[:, None], at] = torch.cat(gen, 1)
+        with torch.no_grad():
+            full, _ = art.model.forward(params, {"tokens": seq})
+        ref = full[rows[:, None], at]                  # (B, steps, V)
+        rel, agree, clear_ok, n_clear = _logit_agreement(got, ref)
+        records[label] = dict(rel=rel, agree=agree, n_clear=n_clear,
+                              launches=n)
+        log(f"  {label}: prefill of {GEN_BATCH} prompts (lengths {lens}) + "
+            f"{GEN_STEPS} greedy decode steps; daism_matmul launches {n} == "
+            f"{per_fwd} sites x {1 + GEN_STEPS} calls; decode vs forward max "
+            f"|diff| / max |ref| {rel:.4g} (bound {PREFILL_APPROX_REL:g}); "
+            f"greedy tokens agree on {agree * 100:.2f}% of rows, on all "
+            f"{n_clear} rows whose top-2 gap exceeds the deviation: "
+            f"{clear_ok}")
+        if rel > PREFILL_APPROX_REL or not clear_ok:
+            raise SystemExit(f"generate ({label}): decode and forward "
+                             "disagree beyond the bound")
+        del full, ref, got, cache
+    ms = sorted(decode_ms)
+    records["decode_ms_p50"] = ms[len(ms) // 2]
+    records["decode_ms_mean"] = sum(ms) / len(ms)
+    log(f"  decode_step at B = {GEN_BATCH}: p50 {records['decode_ms_p50']:.2f}"
+        f" ms, mean {records['decode_ms_mean']:.2f} ms over {len(ms)} steps "
+        f"(host clock, synchronized)")
+    del params, art
+    _free(device)
+    return records, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the training driver (launch/train.py, fault tolerance)
+# ---------------------------------------------------------------------------
+
+def _same_bits(a, b) -> bool:
+    """Leaves equal bit for bit (bf16 and f32 compared as integers)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape or a.device != b.device:
+        return False
+    view = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    if a.dtype in view:
+        a, b = a.view(view[a.dtype]), b.view(view[a.dtype])
+    return bool(torch.equal(a, b))
+
+
+def _dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def train_driver(device, cfg):
+    """``launch.train.main`` at full width and DRIVER_LAYERS layers, then
+    ``fault_tolerance.run`` preempted before step DRIVER_PREEMPT and
+    resumed from a fresh init: the restored state must equal, bit for bit,
+    a copy of the step-DRIVER_EVERY state taken in memory. Returns
+    (records, GEMM kernel launches)."""
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.data import lm_batches
+    from repro_torch.kernels import daism_matmul as dm
+    from repro_torch.launch import train as launcher
+    from repro_torch.launch.steps import build_artifacts
+    from repro_torch.models.module import flatten
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.fault_tolerance import (SimulatedPreemption,
+                                                     TrainLoopConfig, run)
+
+    small = dataclasses.replace(cfg, n_layers=DRIVER_LAYERS).with_policy(
+        GEN_POLICY)
+    art = build_artifacts(small, device=device, total_steps=DRIVER_STEPS,
+                          warmup=1, opt_cfg=AdamWConfig(lr=1e-3))
+    per_step = approx_launches_per_step(art.model)
+    root = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    records = {}
+    log(f"  depth cut: {DRIVER_LAYERS} of {cfg.n_layers} layers at full "
+        "width, so that a checkpoint holds ~3 GB (bf16 params, f32 master, "
+        "m and v)")
+    try:
+        argv = ["--arch", "tinyllama_1_1b", "--layers", str(DRIVER_LAYERS),
+                "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                "--steps", str(DRIVER_STEPS), "--ckpt-every",
+                str(DRIVER_EVERY), "--policy", GEN_POLICY, "--ckpt",
+                str(root / "launcher"), "--log-every", "1", "--device",
+                str(device)]
+        log("  python -m repro_torch.launch.train " + " ".join(
+            repr(a) if "*" in a else a for a in argv))
+        dm.launches = 0
+        t0 = time.perf_counter()
+        _, opt, state = launcher.main(argv)
+        _sync(device)
+        sec = time.perf_counter() - t0
+        n = dm.launches
+        launches = n
+        if state.step != DRIVER_STEPS or int(opt.step) != DRIVER_STEPS or \
+                n != DRIVER_STEPS * per_step:
+            raise SystemExit(f"launch.train: step {state.step}, optimizer "
+                             f"step {int(opt.step)}, daism_matmul launched "
+                             f"{n} times where {DRIVER_STEPS} x {per_step} "
+                             "are implied")
+        if ckpt.latest_step(str(root / "launcher")) != DRIVER_STEPS:
+            raise SystemExit("launch.train left no complete final checkpoint")
+        one = _dir_bytes(root / "launcher" / f"step_{DRIVER_STEPS:08d}")
+        records.update(launcher_s=sec, checkpoint_bytes=one)
+        log(f"  launch.train: {DRIVER_STEPS} steps in {sec:.1f} s (2 "
+            f"checkpoints included); daism_matmul launches {n} == "
+            f"{DRIVER_STEPS} x {per_step} sites; a checkpoint holds "
+            f"{one / 1e9:.3f} GB")
+        del opt, state
+        shutil.rmtree(root / "launcher")
+        _free(device)
+
+        # preempted before step DRIVER_PREEMPT, resumed from a fresh init
+        loop = TrainLoopConfig(total_steps=DRIVER_STEPS,
+                               ckpt_dir=str(root / "resume"),
+                               ckpt_every=DRIVER_EVERY, log_every=1)
+        marks, saved, losses, step_ms = {}, {}, {}, []
+
+        def put(b):
+            return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+
+        def metrics(step, m):
+            losses[step] = m["loss"]
+            marks[step] = time.perf_counter()
+            log(f"  run: step {step} loss {m['loss']:.4f} gnorm "
+                f"{m['grad_norm']:.3f} lr {m['lr']:.2e}")
+
+        def first_run_step(params, opt, batch):
+            if int(opt.step) == DRIVER_EVERY:  # after the save at step 3
+                marks["saved"] = time.perf_counter()
+            t0 = time.perf_counter()
+            out = art.train_step(params, opt, batch)
+            _sync(device)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if int(out[1].step) == DRIVER_EVERY:
+                _sync(device)
+                saved["tree"] = {k: v.clone() for k, v in ckpt._flatten(
+                    {"params": out[0], "opt": out[1]}).items()}
+            return out
+
+        def bomb(step):
+            if step == DRIVER_PREEMPT:
+                raise SimulatedPreemption(f"preempted before step {step + 1}")
+
+        dm.launches = 0
+        params = art.init_params(0)
+        try:
+            run(loop, first_run_step, params, art.init_opt(params),
+                lm_batches(small.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=0), put,
+                fault_hook=bomb, metrics_hook=metrics)
+        except SimulatedPreemption as e:
+            log(f"  run: SimulatedPreemption ({e}) after step "
+                f"{DRIVER_PREEMPT}; newest checkpoint: step "
+                f"{ckpt.latest_step(loop.ckpt_dir)}")
+        else:
+            raise SystemExit("the fault hook did not preempt the run")
+        n_first = dm.launches
+        save_s = marks["saved"] - marks[DRIVER_EVERY]
+        del params
+        _free(device)
+
+        checked = {}
+
+        def resumed_step(params, opt, batch):
+            if not checked:  # the first step sees the restored state
+                marks["restored"] = time.perf_counter()
+                now = ckpt._flatten({"params": params, "opt": opt})
+                bad = [k for k, v in saved["tree"].items()
+                       if not _same_bits(v, now[k])]
+                checked.update(step=int(opt.step), leaves=len(now), bad=bad)
+                if bad or int(opt.step) != DRIVER_EVERY or \
+                        set(now) != set(saved["tree"]):
+                    raise SystemExit(f"resume: optimizer step "
+                                     f"{int(opt.step)}, {len(bad)} leaves "
+                                     f"differ from the step-{DRIVER_EVERY} "
+                                     f"state, e.g. {bad[:3]}")
+            t0 = time.perf_counter()
+            out = art.train_step(params, opt, batch)
+            _sync(device)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        fresh = art.init_params(1)
+        t0 = time.perf_counter()
+        _, opt, state = run(loop, resumed_step, fresh, art.init_opt(fresh),
+                            lm_batches(small.vocab, TRAIN_BATCH, TRAIN_SEQ,
+                                       seed=0), put, metrics_hook=metrics)
+        _sync(device)
+        end = time.perf_counter()
+        n_resumed = dm.launches - n_first
+        launches += dm.launches
+        restore_s = marks["restored"] - t0
+        final_s = end - marks[DRIVER_STEPS]
+        n_params = sum(t.numel() for t in flatten(fresh).values())
+        if state.step != DRIVER_STEPS or not math.isfinite(
+                losses[DRIVER_STEPS]):
+            raise SystemExit(f"resume: ended at step {state.step}, loss "
+                             f"{losses.get(DRIVER_STEPS)}")
+        want = (DRIVER_PREEMPT + DRIVER_STEPS - DRIVER_EVERY) * per_step
+        if n_first + n_resumed != want:
+            raise SystemExit(f"run: daism_matmul launched "
+                             f"{n_first + n_resumed} times; the steps imply "
+                             f"{want}")
+        steady = sorted(step_ms[1:])
+        records.update(step_ms_p50=steady[len(steady) // 2])
+        log("  train_step ms (host clock, synchronized; both runs): " +
+            ", ".join(f"{t:.1f}" for t in step_ms))
+        records.update(restore_s=restore_s, save_s=save_s,
+                       final_save_s=final_s, n_params=n_params,
+                       leaves=checked["leaves"],
+                       final_loss=losses[DRIVER_STEPS])
+        log(f"  resume from a fresh init at step {checked['step']}: all "
+            f"{checked['leaves']} leaves of params and optimizer state equal "
+            f"the in-memory step-{DRIVER_EVERY} copy bit for bit; step "
+            f"{DRIVER_STEPS} loss {losses[DRIVER_STEPS]:.4f}; daism_matmul "
+            f"launches {n_first} + {n_resumed} == {want} implied")
+        log(f"  {n_params / 1e6:.1f}e6 parameters; checkpoint save (host "
+            f"copy + np.savez + rename) {save_s:.2f} s at step "
+            f"{DRIVER_EVERY}, {final_s:.2f} s at step {DRIVER_STEPS}; restore "
+            f"(np.load + copy to the card) {restore_s:.2f} s; 4 checkpoints "
+            f"written in this phase, {4 * records['checkpoint_bytes'] / 1e9:.2f}"
+            " GB")
+        del opt, state, fresh, saved["tree"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del art
+    _free(device)
+    return records, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 10: cnn
+# ---------------------------------------------------------------------------
+
+def cnn_kernel_sites(model) -> int:
+    """GEMM sites of one CNN forward that resolve to the kernel: every
+    conv (OpKind.CONV), FC and the head (LM_HEAD) under ``model``'s
+    policy."""
+    from repro_torch.core.config import Backend
+    from repro_torch.policy import OpKind
+
+    pol = model.cfg.approx_policy
+    n = 0
+    for name, (shape, _, _) in model.param_specs().items():
+        if name.endswith("_b"):
+            continue
+        kind = (OpKind.CONV if len(shape) == 4 else
+                OpKind.LM_HEAD if name == "out" else OpKind.DENSE)
+        c = pol.resolve(f"cnn/{name}", kind)
+        n += not c.exact and c.backend is Backend.PALLAS
+    return n
+
+
+def cnn_step(model, params, opt, images, labels):
+    """One AdamW step of a CNN (the reference example's recipe)."""
+    import torch
+
+    from repro_torch.models.module import flatten, unflatten
+    from repro_torch.models.registry import classifier_loss
+    from repro_torch.optim import AdamWConfig, apply_updates
+
+    leaves = list(flatten(params).values())
+    with torch.enable_grad():
+        for t in leaves:
+            t.requires_grad_(True)
+        try:
+            logits, _ = model.forward(params, {"images": images})
+            loss = classifier_loss(logits, labels)
+            grads = torch.autograd.grad(loss, leaves)
+        finally:
+            for t in leaves:
+                t.requires_grad_(False)
+    grads = unflatten(dict(zip(flatten(params), grads)))
+    params, opt, m = apply_updates(params, grads, opt,
+                                   AdamWConfig(lr=1e-3, weight_decay=0.01))
+    return params, opt, loss.detach(), m["grad_norm"]
+
+
+def cnn(device):
+    """VGG-16 (published widths) and LeNet-5 in bf16 under PC3_TR on the
+    kernel: one forward against the jnp backend's forward on the card,
+    3 straight-through and 1 approximate-backward train steps. Returns
+    (records, GEMM kernel launches)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import Backend, DaismConfig, Variant
+    from repro_torch.data import image_batches
+    from repro_torch.kernels import daism_matmul as dm
+    from repro_torch.models.cnn import CNNModel
+    from repro_torch.optim import init_state
+    from repro_torch.policy import ApproxPolicy
+
+    records, launches = {}, 0
+    for net, batch, shape, noise, seed in CNN_RUNS:
+        base = dataclasses.replace(get_config(net), param_dtype="bfloat16",
+                                   compute_dtype="bfloat16")
+        kern = CNNModel(base.with_policy(GEN_POLICY), device=device)
+        approx = CNNModel(base.with_policy(ApproxPolicy.uniform(DaismConfig(
+            variant=Variant.PC3_TR, backend=Backend.PALLAS,
+            backward="approx"))), device=device)
+        plain = CNNModel(base.with_policy("*=pc3_tr"), device=device)
+        params = kern.init(0)
+        b = next(image_batches(10, batch, shape=shape, noise=noise,
+                               seed=seed))
+        images = torch.from_numpy(b["images"]).to(device)
+        labels = torch.from_numpy(b["labels"]).to(device)
+        per_fwd = cnn_kernel_sites(kern)
+        opt = init_state(params)
+
+        dm.launches = 0
+        with torch.no_grad():
+            kern.forward(params, {"images": images})  # first use (warm-up)
+            _sync(device)
+            t0 = time.perf_counter()
+            got, _ = kern.forward(params, {"images": images})
+            _sync(device)
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+        n_fwd = dm.launches
+        if n_fwd != 2 * per_fwd:
+            raise SystemExit(f"{net}: a forward launched {n_fwd / 2:g} "
+                             f"GEMMs, the sites imply {per_fwd}")
+        # the plain version: the jnp backend on the card, same weights and
+        # images (it launches no kernel)
+        with torch.no_grad():
+            ref, _ = plain.forward(params, {"images": images})
+            _sync(device)
+        if dm.launches != n_fwd:
+            raise SystemExit(f"{net}: the jnp backend launched the kernel")
+        if got.shape != (batch, 10) or not bool(torch.isfinite(got).all()):
+            raise SystemExit(f"{net}: logits not finite or shaped "
+                             f"{tuple(got.shape)}")
+        rel, agree, clear_ok, n_clear = _logit_agreement(got, ref)
+        log(f"  {net} B={batch} bf16: forward {fwd_ms:.2f} ms, daism_matmul "
+            f"launches {per_fwd} a forward ({per_fwd} sites); kernel vs jnp "
+            f"backend max |diff| / max |ref| {rel:.4g} (bound "
+            f"{CNN_BF16_REL[net]:g}); labels agree on {agree * 100:.1f}% of "
+            f"rows, on all {n_clear} rows whose top-2 gap exceeds the "
+            f"deviation: {clear_ok}")
+        if rel > CNN_BF16_REL[net] or not clear_ok:
+            raise SystemExit(f"{net}: the kernel's forward and the jnp "
+                             "backend's disagree beyond the bound")
+        del got, ref
+        steps = []
+        plan = [("ste", kern, per_fwd)] * 3 + [("approx", approx,
+                                                  3 * per_fwd)]
+        for label, model, want in plan:
+            d0 = dm.launches
+            t0 = time.perf_counter()
+            params, opt, loss, gnorm = cnn_step(model, params, opt, images,
+                                                labels)
+            _sync(device)
+            ms = (time.perf_counter() - t0) * 1e3
+            n = dm.launches - d0
+            steps.append(dict(backward=label, ms=ms, loss=float(loss),
+                              launches=n))
+            log(f"  {net} train step ({label:6s} backward) {ms:9.2f} ms  "
+                f"loss {float(loss):.4f}  grad_norm {float(gnorm):.4f}  "
+                f"daism_matmul launches {n} (sites imply {want})")
+            if not (math.isfinite(float(loss)) and math.isfinite(
+                    float(gnorm))) or n != want:
+                raise SystemExit(f"{net} train step: loss {float(loss)}, "
+                                 f"{n} launches where {want} are implied")
+        n_all = dm.launches
+        launches += n_all
+        records[net] = dict(batch=batch, fwd_ms=fwd_ms, per_fwd=per_fwd,
+                            rel=rel, steps=steps, launches=n_all)
+        del params, opt
+        _free(device)
+    return records, launches
+
+
 def build_all():
     """nvcc of every kernel source, all started together; returns
     {name: (path, seconds)}."""
@@ -1333,6 +1831,18 @@ def main(argv=None) -> int:
     rows, gemm_err = measure(device, [v.value for v in Variant])
     path_ms = measure_paths(device)
     frows, flash_err = measure_flash(device)
+    _free(device)
+
+    log("== 8. generate ==")
+    gen, gen_gemm = generate(device, cfg)
+
+    log("== 9. train driver ==")
+    drv, drv_gemm = train_driver(device, cfg)
+
+    log("== 10. cnn ==")
+    cnns, cnn_gemm = cnn(device)
+
+    log("== summary ==")
     log("  serve: " + report.summary().replace("\n", "\n  serve: "))
     for label, r in pre.items():
         if "ms" in r:
@@ -1342,6 +1852,17 @@ def main(argv=None) -> int:
                 f"{r['tok_s']:.1f} tok/s{warm}")
     for i, st in enumerate(steps):
         log(f"  train step {i + 1} ({st['backward']}): {st['ms']:.1f} ms")
+    log(f"  decode_step (B = {GEN_BATCH}, {cfg.n_layers} layers): p50 "
+        f"{gen['decode_ms_p50']:.2f} ms, mean {gen['decode_ms_mean']:.2f} ms")
+    log(f"  train driver ({DRIVER_LAYERS} layers): train_step p50 "
+        f"{drv['step_ms_p50']:.1f} ms; launch.train "
+        f"{drv['launcher_s']:.1f} s for {DRIVER_STEPS} steps; checkpoint "
+        f"{drv['checkpoint_bytes'] / 1e9:.3f} GB, save {drv['save_s']:.2f} / "
+        f"{drv['final_save_s']:.2f} s, restore {drv['restore_s']:.2f} s")
+    for net, r in cnns.items():
+        log(f"  {net} (B = {r['batch']}, bf16): forward {r['fwd_ms']:.2f} ms;"
+            " train steps " + ", ".join(f"{st['backward']} {st['ms']:.1f} ms"
+                                        for st in r["steps"]))
     rep = next(r for r in rows if (r["variant"], r["m"], r["k"], r["n"])
                == REPRESENTATIVE)
     xrep = next(r for r in rows if (r["variant"], r["m"], r["k"], r["n"])
@@ -1352,7 +1873,8 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/daism_matmul.cu",
         "replaces": "src/repro/kernels/daism_matmul.py:43",
-        "launches": serve_launches + pre_gemm + train_gemm,
+        "launches": (serve_launches + pre_gemm + train_gemm + gen_gemm
+                     + drv_gemm + cnn_gemm),
         "max_abs_err": max(max_err, gemm_err),
         "ms": rep["ms"],
         "plain_ms": rep["plain_ms"],
@@ -1362,6 +1884,9 @@ def main(argv=None) -> int:
         "variant": rep["variant"],
         "shape": [rep["m"], rep["k"], rep["n"]],
         "tile_path_ms": path_ms[REPRESENTATIVE[1:]]["tile"],
+        "im2col": [{k: r[k] for k in ("m", "k", "n", "ms", "plain_ms",
+                                      "bound_ms", "bound_by")}
+                   for r in rows if (r["m"], r["k"], r["n"]) in IM2COL_SHAPES],
         "exact": {k: xrep[k] for k in
                   ("ms", "path", "paths", "wrapper_ms", "plain_ms",
                    "bound_ms", "bound_by", "library_ms", "f32_library_ms")}

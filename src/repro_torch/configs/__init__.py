@@ -24,7 +24,7 @@ ARCH_IDS = (
 
 PAPER_IDS = ("lenet5", "vgg16", "vgg8")
 
-PORTED_IDS = ("tinyllama_1_1b",)
+PORTED_IDS = ("tinyllama_1_1b", "lenet5", "vgg16", "vgg8")
 
 _ALIAS = {i.replace("_", "-"): i for i in ARCH_IDS + PAPER_IDS}
 

@@ -1,7 +1,7 @@
 """DAISM core: the paper's contribution as composable torch functions."""
 from .config import ALL_VARIANTS, Backend, DaismConfig, Variant, mantissa_bits
 from .floatmul import approx_mul, approx_mul_to_f32
-from .gemm import daism_dot, daism_matmul
+from .gemm import conv2d_im2col, daism_dot, daism_matmul
 from .multiplier import approx_mul_uint, approx_mul_uint_planes, error_distance
 
 __all__ = [
@@ -12,6 +12,7 @@ __all__ = [
     "mantissa_bits",
     "approx_mul",
     "approx_mul_to_f32",
+    "conv2d_im2col",
     "daism_dot",
     "daism_matmul",
     "approx_mul_uint",

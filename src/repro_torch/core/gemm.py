@@ -12,6 +12,9 @@ Backends
                  CPU tensors (kernels/ops.py).
   * ``exact``  — plain matmul (deployment path).
 
+``conv2d_im2col`` lowers an NHWC convolution onto the same GEMM, as the
+accelerator runs convolutions (kernels flattened into SRAM rows).
+
 Autodiff: the forward pass uses the approximate product. The backward pass is
 straight-through (exact matmul gradients) by default, or routed through the
 approximate GEMM as well with ``backward='approx'``.
@@ -118,3 +121,45 @@ def daism_dot(x: torch.Tensor, w: torch.Tensor,
     k = x.shape[-1]
     out = daism_matmul(x.reshape(-1, k), w, cfg)
     return out.reshape(*lead, w.shape[-1])
+
+
+def _same_pads(size: int, k: int, stride: int):
+    """(low, high) zero padding of XLA's ``SAME`` along one axis: the
+    output has ``ceil(size / stride)`` positions, the odd cell goes high."""
+    total = max((-(-size // stride) - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d_im2col(x: torch.Tensor, kernel: torch.Tensor, cfg: DaismConfig,
+                  *, stride: int = 1, padding: str = "SAME") -> torch.Tensor:
+    """NHWC conv via im2col + DAISM GEMM: how the accelerator executes convs
+    (kernels flattened into SRAM rows, paper Fig 4). kernel: (kh, kw, cin,
+    cout) (HWIO).
+
+    Exact configs run the library convolution (``F.conv2d``; the reference
+    runs ``lax.conv_general_dilated``) and keep ``x``'s dtype. Approximate
+    configs take the patches with their features ordered (cin, kh, kw), the
+    order of the reference's ``conv_general_dilated_patches`` and of
+    ``F.unfold``, reorder the kernel to match, and run
+    :func:`daism_matmul` (output in ``cfg.accum_dtype``).
+    """
+    kh, kw, cin, cout = kernel.shape
+    nb, h, wd = x.shape[0], x.shape[1], x.shape[2]
+    xn = x.permute(0, 3, 1, 2)  # NCHW
+    if padding == "SAME":
+        (top, bottom), (left, right) = (_same_pads(h, kh, stride),
+                                        _same_pads(wd, kw, stride))
+        xn = F.pad(xn, (left, right, top, bottom))
+    elif padding != "VALID":
+        raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
+    ho = (xn.shape[2] - kh) // stride + 1
+    wo = (xn.shape[3] - kw) // stride + 1
+    if cfg.exact:
+        out = F.conv2d(xn, kernel.permute(3, 2, 0, 1), stride=stride)
+        return out.permute(0, 2, 3, 1)
+    patches = F.unfold(xn, (kh, kw), stride=stride)  # (N, cin*kh*kw, Ho*Wo)
+    feat = cin * kh * kw
+    a = patches.transpose(1, 2).reshape(nb * ho * wo, feat).contiguous()
+    kmat = kernel.permute(2, 0, 1, 3).reshape(feat, cout).contiguous()
+    out = daism_matmul(a, kmat, cfg)
+    return out.reshape(nb, ho, wo, cout)

@@ -1,4 +1,4 @@
-"""The train and prefill steps on one device.
+"""The train, prefill and decode steps on one device.
 
 ``build_artifacts`` assembles, for one architecture, the model and its step
 functions: the port of ``repro/launch/steps.py`` without the mesh, the
@@ -13,7 +13,11 @@ to lay out or compile).
   state are updated in place (see ``optim/adamw.py``).
 * ``prefill_step(params, batch) -> logits``: the full-sequence forward
   under ``torch.no_grad()``.
-* ``decode_step`` needs the slot caches, which are not ported yet.
+* ``decode_step(params, tokens, cache) -> (logits, cache)``: one token
+  through ``model.decode_step`` under ``torch.no_grad()``, on a slot cache
+  from ``init_cache(batch_size, max_seq)`` (allocated on the artifacts'
+  device; the reference's ``make_cache_shapes`` gives the same tree
+  abstractly). The cache is written in place.
 """
 from __future__ import annotations
 
@@ -35,9 +39,10 @@ class Artifacts:
     model: Any
     train_step: Callable      # (params, opt, batch) -> (params, opt, metrics)
     prefill_step: Callable    # (params, batch) -> logits
-    decode_step: Callable     # not ported: raises
+    decode_step: Callable     # (params, tokens, cache) -> (logits, cache)
     init_params: Callable[[int], Any]
     init_opt: Callable[[Any], AdamWState]
+    init_cache: Callable[[int, int], Dict[str, torch.Tensor]]
 
 
 def build_artifacts(cfg: ArchConfig, *, device="cuda",
@@ -80,10 +85,12 @@ def build_artifacts(cfg: ArchConfig, *, device="cuda",
         return logits
 
     def decode_step(params, tokens, cache):
-        raise NotImplementedError(
-            "decode_step needs the slot caches (init_cache, _cached_forward, "
-            "prefill), which are not ported yet (ROADMAP §A); serve through "
-            "repro_torch.serve, whose paged_step is ported")
+        tokens = torch.as_tensor(tokens).to(dev).long()
+        with torch.no_grad():
+            return model.decode_step(params, tokens, cache)
+
+    def init_cache(batch_size: int, max_seq: int):
+        return model.init_cache(batch_size, max_seq)
 
     def init_params(seed: int = 0):
         with torch.no_grad():
@@ -91,4 +98,5 @@ def build_artifacts(cfg: ArchConfig, *, device="cuda",
 
     return Artifacts(cfg=cfg, model=model, train_step=train_step,
                      prefill_step=prefill_step, decode_step=decode_step,
-                     init_params=init_params, init_opt=init_state)
+                     init_params=init_params, init_opt=init_state,
+                     init_cache=init_cache)

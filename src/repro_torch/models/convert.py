@@ -17,7 +17,7 @@ from repro_torch.core.config import torch_dtype
 
 from .common import ArchConfig
 from .module import Params, flatten, unflatten
-from .transformer import DecoderLM
+from .registry import build_model
 
 
 def _to_tensor(arr, dtype: torch.dtype, device) -> torch.Tensor:
@@ -35,10 +35,10 @@ def params_from_jax(np_tree: Dict[str, Any], cfg: ArchConfig,
                     device="cuda") -> Params:
     """The port's parameters for ``cfg`` from the JAX package's tree.
 
-    Raises if the paths, shapes or dtypes differ from what the port's
-    :class:`~repro_torch.models.transformer.DecoderLM` declares.
+    Raises if the paths, shapes or dtypes differ from what the port's model
+    for ``cfg.family`` (``DecoderLM``, ``CNNModel``) declares.
     """
-    model = DecoderLM(cfg, device=device)
+    model = build_model(cfg, device=device)
     specs = model.param_specs()
     flat = flatten(np_tree)
     if set(flat) != set(specs):

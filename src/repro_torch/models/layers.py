@@ -9,8 +9,7 @@ rule on an eligible call selects the fused flash-attention kernel
 
 Ported from ``repro/models/layers.py`` with the same masks, sentinels and
 chunked online softmax, so f32 rounding stays close to the reference.
-Deferred: the tensor-parallel ``shard_map`` branch of paged attention and
-the slot caches of ``decode_step``/``prefill``.
+Deferred: the tensor-parallel ``shard_map`` branch of paged attention.
 """
 from __future__ import annotations
 
@@ -224,12 +223,66 @@ def _paged_kv_attend(q, k, v, ck, cv, widx, phys_read, positions, *,
                   chunk=chunk, softcap=softcap)
 
 
+def _update_slice(buf: torch.Tensor, dim: int, start: torch.Tensor,
+                  new: torch.Tensor) -> None:
+    """``lax.dynamic_update_slice`` along ``dim``, in place: ``new`` lands
+    at ``start`` clamped to ``[0, size - len]`` (a start past the end moves
+    back until the slice fits, as XLA clamps it). ``start`` is a device
+    scalar, so nothing waits for the card."""
+    n = new.shape[dim]
+    lo = start.clamp(0, buf.shape[dim] - n)
+    buf.index_copy_(dim, lo + torch.arange(n, device=buf.device),
+                    new.to(buf.dtype))
+
+
+def _slot_kv_attend(q, k, v, cache, positions, cfg: ArchConfig, *, causal):
+    """Write the new K/V into one layer's slot cache and attend over it.
+
+    ``cache`` holds the layer's ``k``/``v`` (B, size, KH, HD) views of the
+    stacked cache (written in place), ``pos`` (a scalar: every row at one
+    offset; or (B,): row ``i`` writes at ``pos[i]``) and, for a ring
+    buffer, the layer's ``abs_pos`` (size,) view: the absolute position of
+    each cell, -1 while empty. Returns (out, the layer's new cache)."""
+    ck, cv, pos = cache["k"], cache["v"], cache["pos"]
+    b, s = k.shape[:2]
+    size = ck.shape[1]
+    ring = "abs_pos" in cache
+    if pos.dim() == 1:  # per-slot cache: row i writes at pos[i]
+        if ring:
+            raise NotImplementedError(
+                "per-slot caches do not support ring/window buffers")
+        start = pos.long().clamp(0, size - s)[:, None] + torch.arange(
+            s, device=ck.device)
+        rows = torch.arange(b, device=ck.device)[:, None]
+        ck[rows, start] = k.to(ck.dtype)
+        cv[rows, start] = v.to(cv.dtype)
+    else:
+        slot = torch.remainder(pos, size) if ring else pos
+        slot = slot.long()
+        _update_slice(ck, 1, slot, k)
+        _update_slice(cv, 1, slot, v)
+    new_cache = dict(k=ck, v=cv, pos=pos + s)
+    if ring:
+        ap = cache["abs_pos"]
+        _update_slice(ap, 0, slot, positions)
+        new_cache["abs_pos"] = ap
+        kv_pos = torch.where(ap < 0, _PAD_POS, ap)  # empty cells masked out
+    else:
+        kv_pos = torch.arange(size, device=ck.device)
+    out = attend(q, ck, cv, positions, kv_pos, causal=causal,
+                 window=cfg.window, chunk=cfg.attn_chunk,
+                 softcap=cfg.logit_softcap)
+    return out, new_cache
+
+
 def self_attention(ctx: Ctx, x: torch.Tensor, cfg: ArchConfig, *,
                    positions: torch.Tensor, cache: Optional[dict] = None,
                    causal: bool = True, use_bias: bool = False
                    ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """GQA self-attention, non-cached (``forward``) or over the paged KV
-    pool (``paged_step``: ``cache`` holds the layer's pool and the resolved
+    """GQA self-attention: non-cached (``forward``), over a slot cache
+    (``decode_step``/``prefill``: ``cache`` holds the layer's ``k``/``v``,
+    ``pos`` and, for a ring, ``abs_pos``) or over the paged KV pool
+    (``paged_step``: ``cache`` holds the layer's pool and the resolved
     ``write_idx`` / ``phys_read`` indices)."""
     nh, kh, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
     b, s, _ = x.shape
@@ -241,11 +294,12 @@ def self_attention(ctx: Ctx, x: torch.Tensor, cfg: ArchConfig, *,
         k = rope(k, positions, cfg.rope_theta)
 
     new_cache = None
-    if cache is not None:
-        if "write_idx" not in cache:
-            raise NotImplementedError(
-                "slot KV caches (decode_step/prefill) are not ported yet; "
-                "serve through paged_step")
+    if cache is not None and "write_idx" not in cache:
+        # slot KV cache (decode_step / prefill): attention is exact, as in
+        # the reference (no policy: no flash, no DAISM product)
+        out, new_cache = _slot_kv_attend(q, k, v, cache, positions, cfg,
+                                         causal=causal)
+    elif cache is not None:
         # paged KV cache: per-layer physical page pool k/v (P + 1, KH, HD);
         # the request's block table is pre-resolved by DecoderLM.paged_step
         # into write_idx (B, S): physical cell of each new token (P = the

@@ -46,6 +46,16 @@ def lecun_init() -> Init:
     return init
 
 
+def he_init() -> Init:
+    """Kaiming/He init (gain 2 for ReLU), for deep plain-ReLU stacks like
+    VGG-16 without normalization layers. For conv kernels (kh, kw, cin,
+    cout) fan_in = kh*kw*cin."""
+    def init(gen, shape, dtype, device):
+        fan_in = int(np.prod(shape[:-1])) if len(shape) >= 2 else shape[-1]
+        return _normal(gen, shape, np.sqrt(2.0 / fan_in), dtype, device)
+    return init
+
+
 def zeros_init() -> Init:
     def init(gen, shape, dtype, device):
         return torch.zeros(tuple(shape), dtype=torch_dtype(dtype), device=device)

@@ -1,13 +1,14 @@
-"""Model registry: family -> model class (dense decoder LMs so far), plus
-the shared LM loss."""
+"""Model registry: family -> model class (dense decoder LMs and the paper's
+CNNs so far), plus the shared LM and classifier losses."""
 from __future__ import annotations
 
 import torch
 
+from .cnn import CNNModel
 from .common import ArchConfig
 from .transformer import DecoderLM
 
-_FAMILIES = {"dense": DecoderLM}
+_FAMILIES = {"dense": DecoderLM, "cnn": CNNModel}
 
 
 def build_model(cfg: ArchConfig, device="cuda"):
@@ -27,3 +28,9 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor, aux=0.0,
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
     return nll.mean() + aux_weight * aux
+
+
+def classifier_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross entropy of (B, classes) logits, in f32."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    return -torch.gather(logp, -1, labels.long()[:, None]).mean()

@@ -1,4 +1,5 @@
-"""Decoder-only transformer (dense): ``forward`` and paged serving steps.
+"""Decoder-only transformer (dense): ``forward``, slot-cache generation and
+paged serving steps.
 
 Parameters are the JAX package's tree: stacked ``blocks`` tensors with a
 leading layer axis. The reference consumes the stack with one ``lax.scan``
@@ -6,9 +7,9 @@ per policy segment; here each segment is a Python loop over its layers,
 run under the site scope ``layer_{lo}`` of its first layer, so per-depth
 rules resolve exactly as they do in the reference.
 
-Ported: ``init``, ``forward``, ``init_paged_cache``, ``paged_step``.
-Not yet: ``paged_verify_step``, ``init_cache``/``decode_step``/``prefill``,
-MoE, VLM cross blocks and ``EncDecLM``.
+Ported: ``init``, ``forward``, ``init_cache``/``prefill``/``decode_step``
+(slot caches, ring buffers), ``init_paged_cache``, ``paged_step`` and
+``paged_verify_step``. Not yet: MoE, VLM cross blocks and ``EncDecLM``.
 """
 from __future__ import annotations
 
@@ -97,10 +98,11 @@ def run_policy_segments(layer_fn, stacked_params: Params, x, *, segments,
 # ---------------------------------------------------------------------------
 
 class DecoderLM:
-    """Dense decoder LM: ``init``, ``forward`` and the paged serving step.
+    """Dense decoder LM: ``init``, ``forward``, slot-cache generation and the
+    paged serving steps.
 
-    ``device`` is where :meth:`init` and :meth:`init_paged_cache` allocate;
-    it defaults to the card.
+    ``device`` is where :meth:`init`, :meth:`init_cache` and
+    :meth:`init_paged_cache` allocate; it defaults to the card.
     """
 
     def __init__(self, cfg: ArchConfig, device="cuda"):
@@ -186,6 +188,89 @@ class DecoderLM:
         return logits, torch.zeros((), dtype=torch.float32,
                                    device=tokens.device)
 
+    # -- KV cache ----------------------------------------------------------
+    def init_cache(self, batch_size: int, max_seq: int):
+        """A slot cache on ``self.device``: ``k``/``v`` (layers, B, size, KH,
+        HD) zeros in the compute dtype and ``pos`` an int32 scalar 0. A
+        window shorter than ``max_seq`` makes it a ring buffer of ``window``
+        cells, with ``abs_pos`` (layers, size), the absolute position of each
+        cell, -1 while empty."""
+        cfg = self.cfg
+        ring = bool(cfg.window) and cfg.window < max_seq
+        size = min(cfg.window, max_seq) if ring else max_seq
+        kshape = (cfg.n_layers, batch_size, size, cfg.kv_heads, cfg.head_dim)
+        dt = torch_dtype(cfg.compute_dtype)
+        cache = {
+            "k": torch.zeros(kshape, dtype=dt, device=self.device),
+            "v": torch.zeros(kshape, dtype=dt, device=self.device),
+            "pos": torch.zeros((), dtype=torch.int32, device=self.device),
+        }
+        if ring:
+            cache["abs_pos"] = torch.full((cfg.n_layers, size), -1,
+                                          dtype=torch.int32,
+                                          device=self.device)
+        return cache
+
+    def _cached_forward(self, params: Params, tokens: torch.Tensor, cache,
+                        positions, pos):
+        """Embed -> cached layer stack -> logits. ``positions`` feeds rope
+        and attention masking; ``pos`` is the cache write offset, a scalar
+        (shared) or a (B,) vector (per-slot cache). The cache's ``k``/``v``
+        (and ``abs_pos``) are written in place; returns (logits, those
+        leaves)."""
+        cfg = self.cfg
+        ctx = Ctx(params)
+        layer_cache = {"k": cache["k"], "v": cache["v"]}
+        if "abs_pos" in cache:
+            layer_cache["abs_pos"] = cache["abs_pos"]
+
+        def layer_fn(c, xx, lc=None):
+            return decoder_block(c, cfg, xx, positions=positions,
+                                 cache=dict(lc, pos=pos), causal=True)
+
+        with site_scope("decoder"):
+            x = embed(ctx, tokens, cfg)
+            x = run_policy_segments(layer_fn, params["blocks"], x,
+                                    segments=self.segments, cache=layer_cache)
+            x = norm(ctx, "final_ln", x, cfg)
+            logits = unembed(ctx, x, cfg)
+        return logits, layer_cache
+
+    def decode_step(self, params: Params, tokens: torch.Tensor, cache):
+        """tokens (B, 1). Returns (logits (B, 1, V), the cache with ``pos``
+        advanced by one).
+
+        ``cache['pos']`` is a scalar (every row at one offset) or a (B,)
+        vector (a slot cache: row ``i`` is an independent request at offset
+        ``pos[i]``). The cache's tensors are written in place (the reference
+        donates them to its jit'd step instead)."""
+        pos = cache["pos"]
+        positions = pos[:, None] if pos.dim() == 1 else pos.reshape(1)
+        logits, new_lc = self._cached_forward(params, tokens, cache,
+                                              positions, pos)
+        return logits, dict(new_lc, pos=pos + 1)
+
+    def prefill(self, params: Params, tokens: torch.Tensor, cache):
+        """Batched prompt ingestion: one forward writes the prompt K/V into
+        the cache and returns full logits. tokens (B, S); right-padded
+        prompts are fine (a pad entry is overwritten by decode before its
+        position is reached, or masked causally).
+
+        Returns (logits (B, S, V), the cache with ``pos`` advanced by S).
+        Ring caches and per-slot ``pos`` vectors are refused, as in the
+        reference."""
+        if "abs_pos" in cache:
+            raise NotImplementedError(
+                "prefill does not support ring/window caches")
+        pos = cache["pos"]
+        if pos.dim() != 0:
+            raise ValueError("prefill expects a scalar-pos cache")
+        s = tokens.shape[1]
+        positions = pos + torch.arange(s, device=pos.device)
+        logits, new_lc = self._cached_forward(params, tokens, cache,
+                                              positions, pos)
+        return logits, dict(new_lc, pos=pos + s)
+
     # -- paged KV cache (block tables; repro_torch.serve) --------------------
     def init_paged_cache(self, num_blocks: int, block_size: int):
         """Physical page pool ``k/v (layers, num_blocks*block_size + 1, KH,
@@ -249,3 +334,19 @@ class DecoderLM:
             x = norm(ctx, "final_ln", x, cfg)
             logits = unembed(ctx, x, cfg)
         return logits, pool
+
+    def paged_verify_step(self, params: Params, tokens: torch.Tensor, cache,
+                          *, block_size: int):
+        """Speculative-decoding verify: one :meth:`paged_step` over the
+        ``S = k+1`` candidate positions. ``tokens[:, 0]`` is each row's last
+        committed token, ``tokens[:, 1:]`` the ``k`` drafts.
+
+        Returns ``(greedy (B, S) per-position argmax, n_acc (B,) the longest
+        prefix of drafts that greedy agrees with, {k, v})``; the caller
+        emits ``greedy[:, :n_acc+1]`` and rolls back the rest."""
+        logits, new_kv = self.paged_step(params, tokens, cache,
+                                         block_size=block_size)
+        greedy = torch.argmax(logits, -1)                     # (B, S)
+        match = (greedy[:, :-1] == tokens[:, 1:]).to(torch.int32)
+        n_acc = torch.cumprod(match, dim=1).sum(dim=1)        # (B,)
+        return greedy, n_acc, new_kv

@@ -2,9 +2,9 @@
 
 The single injection point between models and the DAISM GEMM:
 
-* :func:`policy_dot` is what models call: ``policy_dot(policy, x, w,
-  name=..., kind=...)`` resolves the site under the ambient
-  :mod:`~repro_torch.policy.sites` scope and runs it.
+* :func:`policy_dot` and :func:`policy_conv2d` are what models call:
+  ``policy_dot(policy, x, w, name=..., kind=...)`` resolves the site under
+  the ambient :mod:`~repro_torch.policy.sites` scope and runs it.
 * Backend/dtype combinations are validated at resolution (actionable errors
   naming the site), and the decision is recorded in a per-policy resolution
   log with the site's multiply count.
@@ -12,14 +12,18 @@ The single injection point between models and the DAISM GEMM:
   :class:`DaismConfig` (:func:`matmul_kernel`, :func:`attention_kernel`);
   :func:`kernel_stats` exposes the GEMM cache counters.
 
-The energy report (``site_report``, ``estimated_energy_uj``) and the
-analyzer's ``observe_sites`` hook need ``core/energy.py`` and ``analyze/``,
-which come with a later part of the port.
+* :func:`observe_sites` delivers a :class:`SiteEvent` (with the GEMM's
+  dims) for every site resolved inside it.
+
+The energy report (``site_report``, ``estimated_energy_uj``) needs
+``core/energy.py``, which comes with a later part of the port.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import functools
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -99,6 +103,43 @@ def _record(policy: ApproxPolicy, path: str, kind: OpKind, cfg: DaismConfig,
 
 
 # ---------------------------------------------------------------------------
+# Site observers
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SiteEvent:
+    """One resolved contraction site.
+
+    ``dims = (m, k, n)`` are the dims of a single kernel invocation (leading
+    batch axes folded into ``m``). ``macs`` is the total multiply count of
+    the site including the ambient segment ``repeat``.
+    """
+
+    path: str
+    kind: OpKind
+    config: DaismConfig
+    dtype: str
+    dims: Tuple[int, int, int]
+    macs: int
+    repeat: int
+
+
+_OBSERVERS: List[Callable[[SiteEvent], None]] = []
+
+
+@contextlib.contextmanager
+def observe_sites(callback: Callable[[SiteEvent], None]):
+    """Deliver a :class:`SiteEvent` to ``callback`` for every site resolved
+    (with ``record=True``) inside the with-block."""
+    _OBSERVERS.append(callback)
+    try:
+        yield
+    finally:
+        _OBSERVERS.remove(callback)
+
+
+# ---------------------------------------------------------------------------
 # Kernel cache
 # ---------------------------------------------------------------------------
 
@@ -160,6 +201,7 @@ def kernel_stats() -> Dict[str, int]:
 
 def resolve_site(policy: ApproxPolicy, name: str, kind: OpKind, dtype,
                  *, record: bool = True, macs: int = 0,
+                 dims: Tuple[int, int, int] = (0, 0, 0),
                  attn_eligible: bool = True) -> DaismConfig:
     """Resolve + validate the config for the site named ``name`` under the
     ambient site scope. Returns the (frozen) resolved DaismConfig.
@@ -180,7 +222,12 @@ def resolve_site(policy: ApproxPolicy, name: str, kind: OpKind, dtype,
                 "compute dtype to bfloat16")
     validate_for_dtype(cfg, dtype, site=path)
     if record:
-        _record(policy, path, kind, cfg, dtype, macs * current_repeat())
+        repeat = current_repeat()
+        _record(policy, path, kind, cfg, dtype, macs * repeat)
+        for cb in _OBSERVERS:
+            cb(SiteEvent(path=path, kind=kind, config=cfg,
+                         dtype=dtype_name(dtype), dims=dims,
+                         macs=macs * repeat, repeat=repeat))
     return cfg
 
 
@@ -196,8 +243,30 @@ def policy_dot(policy: ApproxPolicy, x, w, *, name: str,
     n = w.shape[-1]
     m = x.numel() // k if k else 0
     cfg = resolve_site(policy, name, kind, x.dtype, record=record,
-                       macs=m * int(k) * int(n))
+                       macs=m * int(k) * int(n), dims=(m, int(k), int(n)))
     if cfg.exact:
         return x @ w.to(x.dtype)
     out = matmul_kernel(cfg)(x.reshape(-1, k), w)
     return out.reshape(*x.shape[:-1], n).to(x.dtype)
+
+
+def policy_conv2d(policy: ApproxPolicy, x, kernel, *, name: str,
+                  stride: int = 1, padding: str = "SAME",
+                  record: bool = True):
+    """NHWC conv with site-resolved numerics (im2col + DAISM GEMM when the
+    site resolves approximate, the library convolution when exact). The
+    site is an ``OpKind.CONV`` with the im2col GEMM's dims
+    ``(N*Ho*Wo, kh*kw*cin, cout)``; the output has ``x``'s dtype."""
+    from repro_torch.core.gemm import conv2d_im2col
+
+    kh, kw, cin, cout = kernel.shape
+    nb, h, wdim = x.shape[0], x.shape[1], x.shape[2]
+    if padding == "SAME":
+        ho, wo = -(-h // stride), -(-wdim // stride)
+    else:  # VALID
+        ho, wo = -(-(h - kh + 1) // stride), -(-(wdim - kw + 1) // stride)
+    macs = nb * ho * wo * kh * kw * cin * cout
+    cfg = resolve_site(policy, name, OpKind.CONV, x.dtype, record=record,
+                       macs=macs, dims=(nb * ho * wo, kh * kw * cin, cout))
+    return conv2d_im2col(x, kernel.to(x.dtype), cfg, stride=stride,
+                         padding=padding).to(x.dtype)

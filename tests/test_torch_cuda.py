@@ -246,3 +246,60 @@ def test_tensor_core_exact_flash_matches_plain_version(cuda, d, causal, heads):
     assert bool((err <= 2e-3 + 2e-2 * ref.float().abs()).all())
     one_rounding = 2.0**-7 * ref.float().abs() + 2.0**-16 * v.float().abs().max()
     assert bool((err <= one_rounding).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 28, 1, 6, 5), (8, 14, 6, 16, 5),
+                                   (2, 32, 3, 64, 3), (2, 32, 64, 64, 3)])
+def test_conv2d_im2col_on_the_kernel_matches_plain_version(cuda, shape):
+    """(B, side, cin, cout, k): LeNet-5's and VGG-16's first two convs,
+    SAME, bf16, PC3_TR. The card's im2col GEMM launches the kernel; the
+    same call on CPU tensors takes its plain version. Bound as in
+    chip_smoke.py: 4e-4 * (|patches| @ |kernel|) + 1e-6, the f32
+    summation-order bound for K <= 5632."""
+    from repro_torch.core.config import Backend, DaismConfig
+    from repro_torch.core.gemm import conv2d_im2col
+
+    b, side, cin, cout, k = shape
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((b, side, side, cin), generator=g,
+                    device=cuda).to(torch.bfloat16)
+    w = torch.randn((k, k, cin, cout), generator=g,
+                    device=cuda).to(torch.bfloat16)
+    cfg = DaismConfig(variant=Variant.PC3_TR, backend=Backend.PALLAS)
+    before = dm.launches
+    got = conv2d_im2col(x, w, cfg)
+    torch.cuda.synchronize()
+    assert dm.launches == before + 1
+    ref = conv2d_im2col(x.cpu(), w.cpu(), cfg)
+    mag = conv2d_im2col(x.cpu().double().abs(), w.cpu().double().abs(),
+                        DaismConfig(variant=Variant.EXACT))
+    assert got.shape == ref.shape == (b, side, side, cout)
+    err = (got.cpu().double() - ref.double()).abs()
+    assert bool((err <= 4e-4 * mag + 1e-6).all())
+
+
+@pytest.mark.cuda
+def test_checkpoint_of_cuda_tensors_roundtrips_bit_for_bit(cuda, tmp_path):
+    """bf16, f32 and an int32 step on the card: saved, restored onto the
+    card (the device of ``like``), in fresh memory, bit for bit."""
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.optim import init_state
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    params = {"w": torch.randn((64, 33), generator=g,
+                               device=cuda).to(torch.bfloat16),
+              "s": torch.randn((33,), generator=g, device=cuda)}
+    tree = {"params": params, "opt": init_state(params)}
+    tree["opt"].m["w"].normal_(generator=g)
+    ckpt.save(str(tmp_path), 3, tree)
+    out = ckpt.restore(str(tmp_path), 3, tree)
+    src, dst = ckpt._flatten(tree), ckpt._flatten(out)
+    assert set(src) == set(dst)
+    for key, a in src.items():
+        b = dst[key]
+        assert b.device == a.device and b.dtype == a.dtype, key
+        assert b.data_ptr() != a.data_ptr(), key
+        if a.dtype == torch.bfloat16:
+            a, b = a.view(torch.int16), b.view(torch.int16)
+        assert torch.equal(a, b), key

@@ -117,3 +117,18 @@ def test_exact_and_ab_tools_import_without_jax(tool):
     proc = _run(f"import runpy; runpy.run_path({tool!r}, run_name='__main__')")
     assert proc.returncode != 0
     assert "needs a CUDA card" in proc.stderr
+
+
+def test_lenet_example_imports_without_jax():
+    """examples/train_lenet_daism_torch.py (the port's Table-2 example)
+    stands alone too; importing it runs nothing."""
+    code = (
+        "import runpy, sys\n"
+        "runpy.run_path('examples/train_lenet_daism_torch.py', "
+        "run_name='example')\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout == ""

@@ -227,6 +227,10 @@ def test_train_steps_match_jax(kind):
 
 
 def test_prefill_step_matches_forward_and_decode_step_is_not_ported():
+    """prefill_step is the forward under no_grad. (The name dates from
+    before the slot caches were ported: decode_step now runs, and its first
+    token on a fresh cache equals the model's own decode_step, bit for bit;
+    tests/test_torch_cache.py holds it against the JAX package.)"""
     cfg = tget("tinyllama_1_1b").smoke(n_layers=2, vocab=64).with_policy(
         "*/attn/kernel=exact:flash,*=pc3_tr:pallas")
     art = build_artifacts(cfg, device="cpu")
@@ -236,8 +240,11 @@ def test_prefill_step_matches_forward_and_decode_step_is_not_ported():
     ref, _ = art.model.forward(params, {"tokens": torch.from_numpy(toks)})
     assert not logits.requires_grad
     torch.testing.assert_close(logits, ref, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="slot caches"):
-        art.decode_step(params, toks, None)
+    got, cache = art.decode_step(params, toks[:, :1], art.init_cache(1, 16))
+    ref, _ = art.model.decode_step(params, torch.from_numpy(toks[:, :1]),
+                                   art.model.init_cache(1, 16))
+    assert not got.requires_grad and int(cache["pos"]) == 1
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
 
 
 def test_train_step_under_a_flash_policy_raises():
