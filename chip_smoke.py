@@ -275,6 +275,26 @@ IM2COL_SHAPES = [(32768, 27, 64), (32768, 576, 64), (8192, 576, 128),
                  (50176, 25, 6), (12544, 150, 16), (64, 784, 120),
                  (64, 120, 84), (64, 84, 10)]
 
+# phase 7: the speculative verify step's GEMMs, S = SPEC_K + 1 positions of
+# num_slots = 4 rows (M = 16), timed under PC3_TR at every (K, N) site
+SPEC_K = 3
+VERIFY_M = 4 * (SPEC_K + 1)
+# phase 7: exact `x @ w` sites (bf16, cuBLAS) at the main paths' M, with
+# torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction on
+# (PyTorch's default) and off, each against f32 accumulation
+BF16_REDUCTION_M = (1, 4, 16, 128, 2048)
+# phase 10: an f32 exact conv on the card (cuDNN) against the CPU's while
+# torch.backends.cudnn.allow_tf32 is True, PyTorch's default: (B, side,
+# cin, cout, k), within rtol 1e-5 and 1e-5 of the largest output
+C1_CONV = (8, 32, 64, 128, 3)
+C1_RTOL = 1e-5
+# phase 11: preemption against reservation at full width and depth: 4
+# prompts of 12-15 tokens (one 16-token page) growing to 40 tokens (three
+# pages) against a pool of 6 pages, so concurrent decode exhausts it
+PREEMPT_ENGINE = dict(num_slots=4, block_size=16, max_seq=64,
+                      prefill_chunk=32, num_blocks=6)
+PREEMPT_LENS, PREEMPT_TOTAL = (14, 13, 15, 12), 40
+
 
 def gemm_rtol(k: int) -> float:
     return GEMM_RTOL * max(1.0, k / GEMM_RTOL_K)
@@ -1053,6 +1073,7 @@ def measure(device, variants):
     cases += [(m, k, n, ["pc3_tr", "exact"])
               for m, k, n in PREFILL_GEMM_SHAPES + TRAIN_GEMM_SHAPES]
     cases += [(m, k, n, ["pc3_tr"]) for m, k, n in IM2COL_SHAPES]
+    cases += [(VERIFY_M, k, n, ["pc3_tr"]) for k, n in KN_SHAPES]
     max_err = 0.0
     for m, k, n, case_variants in cases:
         w = torch.randn((k, n), generator=gen, device=device).to(torch.bfloat16)
@@ -1186,6 +1207,46 @@ def measure_paths(device):
                 f"{old:.3f} ms; bound {b:.3f} ms)")
     _free(device)
     return times
+
+
+def bf16_reduction(device):
+    """Does ``allow_bf16_reduced_precision_reduction`` (PyTorch's default:
+    on) move the exact ``x @ w`` sites (bf16 in, bf16 out, cuBLAS) away
+    from f32 accumulation? At every (K, N) site and BF16_REDUCTION_M, the
+    bf16 outputs with the flag on and off are compared element by element
+    with ``torch.mm(a, w, out_dtype=torch.float32)`` rounded to bf16.
+    Returns {(m, k, n): (differing with the flag on, with it off)}."""
+    import torch
+
+    flags = torch.backends.cuda.matmul
+    gen = torch.Generator(device=device).manual_seed(9)
+    default = flags.allow_bf16_reduced_precision_reduction
+    out = {}
+    try:
+        for m in BF16_REDUCTION_M:
+            for k, n in KN_SHAPES:
+                a = torch.randn((m, k), generator=gen,
+                                device=device).to(torch.bfloat16)
+                w = (torch.randn((k, n), generator=gen, device=device)
+                     / math.sqrt(k)).to(torch.bfloat16)
+                ref = torch.mm(a, w, out_dtype=torch.float32).to(
+                    torch.bfloat16)
+                diff = []
+                for flag in (True, False):
+                    flags.allow_bf16_reduced_precision_reduction = flag
+                    diff.append(int((a @ w != ref).sum()))
+                out[(m, k, n)] = tuple(diff)
+                del a, w, ref
+    finally:
+        flags.allow_bf16_reduced_precision_reduction = default
+    moved = {key: d for key, d in out.items() if any(d)}
+    log(f"  exact bf16 x @ w at M {BF16_REDUCTION_M} x {len(KN_SHAPES)} "
+        f"(K, N) sites: elements differing from f32 accumulation with "
+        f"allow_bf16_reduced_precision_reduction on / off: "
+        + (", ".join(f"{key} {d[0]} / {d[1]}" for key, d in moved.items())
+           if moved else f"0 / 0 at all {len(out)} shapes"))
+    _free(device)
+    return out
 
 
 def flash_one_bf16_p(q, k, v):
@@ -1715,6 +1776,309 @@ def cnn(device):
     return records, launches
 
 
+def c1_conv(device):
+    """An f32 exact ``conv2d_im2col`` on the card against the CPU's while
+    ``torch.backends.cudnn.allow_tf32`` is True (PyTorch's default; the
+    script keeps it off elsewhere): within C1_RTOL (and C1_RTOL of the
+    largest output). A control, the same convolution by ``F.conv2d`` with
+    TF32 allowed, must break that bound (cuDNN then rounds to TF32).
+    Returns (deviation, control's deviation), each / max |CPU output|."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.config import Backend, DaismConfig, Variant
+    from repro_torch.core.gemm import conv2d_im2col
+
+    b, side, cin, cout, k = C1_CONV
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((b, side, side, cin), generator=g)
+    w = torch.randn((k, k, cin, cout), generator=g) / math.sqrt(k * k * cin)
+    exact = DaismConfig(variant=Variant.EXACT, backend=Backend.EXACT)
+    ref = conv2d_im2col(x, w, exact)
+    xd, wd = x.to(device), w.to(device)
+    cudnn = torch.backends.cudnn
+    prev = cudnn.allow_tf32
+    cudnn.allow_tf32 = True
+    try:
+        got = conv2d_im2col(xd, wd, exact).cpu()
+        if not cudnn.allow_tf32:
+            raise SystemExit("conv2d_im2col left cudnn.allow_tf32 changed")
+        ctl = F.conv2d(xd.permute(0, 3, 1, 2), wd.permute(3, 2, 0, 1),
+                       padding=k // 2).permute(0, 2, 3, 1).cpu()
+    finally:
+        cudnn.allow_tf32 = prev
+    top = ref.abs().max().item()
+    dev = (got - ref).abs().max().item() / top
+    ctl_dev = (ctl - ref).abs().max().item() / top
+    held = bool(((got - ref).abs() <= C1_RTOL * top
+                 + C1_RTOL * ref.abs()).all())
+    broke = not bool(((ctl - ref).abs() <= C1_RTOL * top
+                      + C1_RTOL * ref.abs()).all())
+    log(f"  C1: f32 exact conv {C1_CONV} with cudnn.allow_tf32=True: card vs "
+        f"CPU max |diff| / max |ref| {dev:.3g} (bound {C1_RTOL:g} + "
+        f"{C1_RTOL:g} |ref|): {held}; control F.conv2d in TF32 "
+        f"{ctl_dev:.3g}, breaks it: {broke}")
+    if not (held and broke):
+        raise SystemExit("C1: the f32 exact conv on the card is not full f32 "
+                         "(or the control did not run in TF32)")
+    return dev, ctl_dev
+
+
+# ---------------------------------------------------------------------------
+# phase 11: serve with preemption and speculation; the energy report
+# ---------------------------------------------------------------------------
+
+def engine_run(model, params, ecfg, reqs, device):
+    """Serve ``reqs`` on a fresh engine and check each request completes
+    at its length and the GEMM kernel launched what the steps imply
+    (prefill, decode and verify steps by each group's sites, draft steps
+    by the draft model's). Returns (engine, report, launches)."""
+    from repro_torch.kernels import daism_matmul as dm
+    from repro_torch.serve import ServeEngine
+
+    engine = ServeEngine(model, params, ecfg, device=device)
+    dm.launches = 0
+    report = engine.run(reqs)
+    _sync(device)
+    launches = dm.launches
+    for st in report.completed:
+        if len(st.output) != st.request.max_new_tokens:
+            raise SystemExit(f"request {st.request_id} produced "
+                             f"{len(st.output)} of {st.request.max_new_tokens}")
+    if len(report.completed) != len(reqs):
+        raise SystemExit(f"{len(report.completed)} of {len(reqs)} completed")
+    expected = sum(report.group_steps[g.label] * approx_launches_per_step(
+        g.model) for g in engine.groups.values())
+    if engine._draft_model is not None:
+        expected += sum(report.group_draft_steps.values()) * \
+            approx_launches_per_step(engine._draft_model)
+    if launches != expected or launches == 0:
+        raise SystemExit(f"daism_matmul launched {launches} times; the steps "
+                         f"imply {expected} ({report.group_steps}, drafts "
+                         f"{report.group_draft_steps})")
+    return engine, report, launches
+
+
+def replay_logits(model, params, ecfg, prompt, feed, device, window=(),
+                  cached_len=0):
+    """One request's plain path through ``model``, alone in row 0 of a
+    fresh pool at the engine's shapes (num_slots rows, zero-padded
+    prefill chunks): its prompt, then one S=1 step per token of ``feed``.
+    A request that adopted ``cached_len`` prompt positions from the prefix
+    cache is prefilled as the engine did it: the chunks from 0 that wrote
+    the cached pages (another request with the same prompt), then chunks
+    from ``cached_len``.
+    Returns (logits (1 + len(feed), V) in f32 — row 0 from the prefill's
+    last prompt position, row j from the step that fed feed[j - 1] — and,
+    with ``window``, the S = len(window) verify step's logits over the
+    prefilled prompt; ms per S=1 step and of the verify step)."""
+    import torch
+
+    r, bs, chunk = ecfg.num_slots, ecfg.block_size, ecfg.prefill_chunk
+    table = torch.full((r, ecfg.max_blocks_per_seq), -1, dtype=torch.int32,
+                       device=device)
+    table[0] = torch.arange(ecfg.max_blocks_per_seq, device=device)
+
+    def step(kv, toks, pos, width):
+        t = torch.zeros((r, width), dtype=torch.long, device=device)
+        t[0, :len(toks)] = torch.tensor(toks, device=device)
+        p = torch.zeros((r,), dtype=torch.int32, device=device)
+        p[0] = pos
+        logits, _ = model.paged_step(params, t, dict(kv, block_tables=table,
+                                                     pos=p), block_size=bs)
+        return logits[0].float()
+
+    rows, step_ms, verify = [], [], None
+    with torch.inference_mode():
+        kv = model.init_paged_cache(ecfg.blocks, bs)
+        for lo in (list(range(0, cached_len, chunk))
+                   + list(range(cached_len, len(prompt), chunk))):
+            piece = prompt[lo:lo + chunk]
+            last = step(kv, piece, lo, chunk)[len(piece) - 1]
+        rows.append(last)
+        if window:
+            kv2 = {n: t.clone() for n, t in kv.items()}
+            _sync(device)
+            t0 = time.perf_counter()
+            verify = step(kv2, list(window), len(prompt), len(window))
+            _sync(device)
+            verify_ms = (time.perf_counter() - t0) * 1e3
+            del kv2
+        for j, tok in enumerate(feed):
+            _sync(device)
+            t0 = time.perf_counter()
+            rows.append(step(kv, [tok], len(prompt) + j, 1)[0])
+            _sync(device)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    return (torch.stack(rows), verify, step_ms,
+            verify_ms if window else None)
+
+
+def serve_more(device, cfg):
+    """Phase 11 at full width: (a) preemption against reservation, (b)
+    speculation against plain decode through phase 4's tiers, (c) both
+    together on (a)'s pool, (d) the energy report. Returns (records,
+    GEMM kernel launches of the engine runs)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.registry import build_model
+    from repro_torch.policy import estimated_energy_uj
+    from repro_torch.serve import EngineConfig, Request, ServeEngine
+
+    records, launches = {}, 0
+    model = build_model(cfg.with_policy(GEN_POLICY), device=device)
+    with torch.inference_mode():
+        params = model.init(seed=0)
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab, size=n).tolist()
+               for n in PREEMPT_LENS]
+
+    def burst():
+        return [Request(prompt=p, max_new_tokens=PREEMPT_TOTAL - len(p))
+                for p in prompts]
+
+    # (a) preemption against whole-lifetime reservation
+    outs = {}
+    for preempt in (True, False):
+        ecfg = EngineConfig(**PREEMPT_ENGINE, preempt=preempt)
+        engine, rep, n = engine_run(model, params, ecfg, burst(), device)
+        launches += n
+        outs[preempt] = [st.output for st in rep.completed]
+        label = "preempt" if preempt else "reserve"
+        records[label] = dict(tok_s=rep.tokens_per_s,
+                              preemptions=rep.preemptions,
+                              peak_active=rep.peak_active_requests)
+        log(f"  (a) {label}: {len(rep.completed)} requests at their lengths "
+            f"in {rep.wall_s:.2f} s, {rep.tokens_per_s:.1f} decode tok/s, "
+            f"step p50 {rep.step_p50_ms:.2f} ms, peak concurrency "
+            f"{rep.peak_active_requests}, {rep.preemptions} preemption(s) / "
+            f"{rep.resumes} resume(s), daism_matmul launches {n} as implied")
+        if preempt and not (rep.preemptions >= 1
+                            and rep.resumes == rep.preemptions):
+            raise SystemExit(f"(a): {rep.preemptions} preemptions, "
+                             f"{rep.resumes} resumes")
+        del engine
+    same = sum(a == b for a, b in zip(outs[True], outs[False]))
+    log(f"  (a) preempt vs reserve: {same} of {len(prompts)} requests "
+        "token-identical")
+    if same != len(prompts):
+        raise SystemExit("(a): preemption changed the tokens")
+
+    # (b) speculation against plain decode, phase 4's tiers and requests
+    base = build_model(cfg, device=device)
+    tiered = dict(num_slots=4, block_size=16, prefill_chunk=32, max_seq=128,
+                  tiers=TIERS)
+    runs = {}
+    for spec in (False, True):
+        ecfg = EngineConfig(**tiered, **(dict(spec_draft="free", spec_k=SPEC_K)
+                                         if spec else {}))
+        runs[spec] = engine_run(base, params, ecfg, serve_requests(cfg.vocab),
+                                device)
+        launches += runs[spec][2]
+    (_, plain, _), (spec_engine, spec, spec_n) = runs[False], runs[True]
+    groups = {g.label: g for g in spec_engine.groups.values()}
+    log(f"  (b) plain: {plain.tokens_per_s:.1f} decode tok/s, step p50 "
+        f"{plain.step_p50_ms:.2f} ms, wall {plain.wall_s:.2f} s; speculative "
+        f"(k = {SPEC_K}): {spec.tokens_per_s:.1f} decode tok/s, tick p50 "
+        f"{spec.step_p50_ms:.2f} ms, wall {spec.wall_s:.2f} s, "
+        f"{spec.spec_steps} verify steps, accept rate "
+        f"{spec.spec_accept_rate:.3f}, {spec.spec_tokens_per_step:.3f} tokens "
+        f"a row-verify, draft steps {spec.group_draft_steps}, launches "
+        f"{spec_n} as implied")
+    if not (spec.spec_steps >= 1 and groups["free"].spec_on is False
+            and spec.group_draft_steps["free"] == 0
+            and spec.spec_tokens_per_step >= 1.0
+            and 0.0 <= spec.spec_accept_rate <= 1.0):
+        raise SystemExit("(b): speculation did not run as specified")
+    paid = groups["paid"].model
+    dev, verify_ms, step_ms = 0.0, [], []
+    for st in plain.completed:
+        if st.group != "paid" or len(st.output) <= SPEC_K + 1:
+            continue
+        window = st.output[:SPEC_K + 1]
+        seq, ver, ms, vms = replay_logits(paid, params, spec_engine.cfg,
+                                          st.request.prompt, window, device,
+                                          window=window,
+                                          cached_len=st.cached_len)
+        dev = max(dev, (ver - seq[1:]).abs().max().item())
+        verify_ms.append(vms)
+        step_ms += ms
+    equal = total = 0
+    firsts = []
+    for p_st, s_st in zip(plain.completed, spec.completed):
+        a, b = p_st.output, s_st.output
+        total += len(a)
+        equal += sum(x == y for x, y in zip(a, b))
+        i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i is None:
+            continue
+        model_i = groups[p_st.group].model
+        seq, _, _, _ = replay_logits(model_i, params, spec_engine.cfg,
+                                     p_st.request.prompt, a[:i], device,
+                                     cached_len=p_st.cached_len)
+        top2 = seq[i].topk(2).values
+        gap = (top2[0] - top2[1]).item()
+        firsts.append((p_st.request_id, p_st.group, i, gap))
+        if gap > dev:
+            raise SystemExit(f"(b): request {p_st.request_id} diverges at "
+                             f"token {i}, where the plain step's top-2 gap "
+                             f"{gap:.4g} exceeds the verify-vs-step "
+                             f"deviation {dev:.4g}")
+    verify_p50 = sorted(verify_ms)[len(verify_ms) // 2]
+    step_p50 = sorted(step_ms)[len(step_ms) // 2]
+    log(f"  (b) paged_verify_step (S = {SPEC_K + 1}) vs {SPEC_K + 1} S=1 "
+        f"paged_steps on the same prefix (paid tier): max |logit diff| "
+        f"{dev:.4g}; verify step {verify_p50:.2f} ms, S=1 step {step_p50:.2f}"
+        f" ms (p50, {spec_engine.cfg.num_slots} rows, host clock after a "
+        f"sync); tokens equal {equal} of {total} "
+        f"({100 * equal / total:.1f}%); first divergences (request, tier, "
+        f"token, top-2 gap <= deviation): {firsts}")
+    records["spec"] = dict(
+        plain_tok_s=plain.tokens_per_s, spec_tok_s=spec.tokens_per_s,
+        accept_rate=spec.spec_accept_rate, verify_ms=verify_p50,
+        step_ms=step_p50)
+
+    # (c) speculation and preemption together on (a)'s pool
+    both = build_model(cfg.with_policy(TIERS[1][1]), device=device)
+    ecfg = EngineConfig(**PREEMPT_ENGINE, preempt=True,
+                        spec_draft=TIERS[0][1], spec_k=SPEC_K)
+    engine, rep, n = engine_run(both, params, ecfg, burst(), device)
+    launches += n
+    in_use = engine.pool.stats()["blocks_in_use"]
+    log(f"  (c) speculation + preemption: {rep.preemptions} preemption(s) / "
+        f"{rep.resumes} resume(s), {rep.spec_steps} verify steps, accept rate "
+        f"{rep.spec_accept_rate:.3f}; blocks in use after the run {in_use}; "
+        f"launches {n} as implied")
+    if in_use != 0 or rep.resumes != rep.preemptions:
+        raise SystemExit("(c): the pool did not drain")
+    del engine
+
+    # (d) the per-site energy report of (b)'s speculative run
+    log("  (d) estimated multiply energy: the paper's analytical 45 nm model "
+        "(core/energy.py) over the sites served, not a reading of the card")
+    log("  " + spec_engine.resolution_report().replace("\n", "\n  "))
+    saves = {}
+    for label, g in groups.items():
+        tot, exact = estimated_energy_uj(g.model.cfg.approx_policy)
+        saves[label] = 1 - tot / exact
+    # an all-exact run (no kernel launches): its estimate saves nothing
+    exact_model = build_model(cfg.with_policy("*=exact"), device=device)
+    ServeEngine(exact_model, params, EngineConfig(
+        num_slots=4, block_size=16, max_seq=64, prefill_chunk=32),
+        device=device).run([Request(prompt=prompts[0], max_new_tokens=4)])
+    tot, exact = estimated_energy_uj(exact_model.cfg.approx_policy)
+    saves["all-exact"] = 1 - tot / exact
+    log("  (d) estimated multiply energy saved vs all-exact: "
+        + ", ".join(f"{k} {100 * v:.1f}%" for k, v in saves.items()))
+    if not (saves["free"] > saves["paid"] > 0 and saves["all-exact"] == 0.0):
+        raise SystemExit(f"(d): savings {saves} out of order")
+    records["energy_saves"] = saves
+    del spec_engine, runs, params, model, base, both, exact_model
+    _free(device)
+    return records, launches
+
+
 def build_all():
     """nvcc of every kernel source, all started together; returns
     {name: (path, seconds)}."""
@@ -1831,6 +2195,7 @@ def main(argv=None) -> int:
     rows, gemm_err = measure(device, [v.value for v in Variant])
     path_ms = measure_paths(device)
     frows, flash_err = measure_flash(device)
+    reduction = bf16_reduction(device)
     _free(device)
 
     log("== 8. generate ==")
@@ -1841,6 +2206,10 @@ def main(argv=None) -> int:
 
     log("== 10. cnn ==")
     cnns, cnn_gemm = cnn(device)
+    c1 = c1_conv(device)
+
+    log("== 11. serve: preemption, speculation, energy ==")
+    more, more_gemm = serve_more(device, cfg)
 
     log("== summary ==")
     log("  serve: " + report.summary().replace("\n", "\n  serve: "))
@@ -1863,6 +2232,22 @@ def main(argv=None) -> int:
         log(f"  {net} (B = {r['batch']}, bf16): forward {r['fwd_ms']:.2f} ms;"
             " train steps " + ", ".join(f"{st['backward']} {st['ms']:.1f} ms"
                                         for st in r["steps"]))
+    log(f"  C1: f32 exact conv card vs CPU {c1[0]:.3g} of max |ref| (TF32 "
+        f"control {c1[1]:.3g}); bf16 x @ w shapes moved by the reduced-"
+        "precision reduction flag: "
+        f"{sum(any(d) for d in reduction.values())} of {len(reduction)}")
+    sp = more["spec"]
+    log(f"  serve (a): preempt {more['preempt']['tok_s']:.1f} decode tok/s "
+        f"({more['preempt']['preemptions']} preemptions, peak concurrency "
+        f"{more['preempt']['peak_active']}), reserve "
+        f"{more['reserve']['tok_s']:.1f} (peak "
+        f"{more['reserve']['peak_active']}); (b) plain "
+        f"{sp['plain_tok_s']:.1f} vs speculative {sp['spec_tok_s']:.1f} "
+        f"decode tok/s, accept rate {sp['accept_rate']:.3f}, verify step "
+        f"{sp['verify_ms']:.2f} ms vs S=1 step {sp['step_ms']:.2f} ms; "
+        f"(d) estimated multiply energy saved: "
+        + ", ".join(f"{k} {100 * v:.1f}%"
+                    for k, v in more["energy_saves"].items()))
     rep = next(r for r in rows if (r["variant"], r["m"], r["k"], r["n"])
                == REPRESENTATIVE)
     xrep = next(r for r in rows if (r["variant"], r["m"], r["k"], r["n"])
@@ -1874,7 +2259,7 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/csrc/daism_matmul.cu",
         "replaces": "src/repro/kernels/daism_matmul.py:43",
         "launches": (serve_launches + pre_gemm + train_gemm + gen_gemm
-                     + drv_gemm + cnn_gemm),
+                     + drv_gemm + cnn_gemm + more_gemm),
         "max_abs_err": max(max_err, gemm_err),
         "ms": rep["ms"],
         "plain_ms": rep["plain_ms"],
@@ -1887,6 +2272,10 @@ def main(argv=None) -> int:
         "im2col": [{k: r[k] for k in ("m", "k", "n", "ms", "plain_ms",
                                       "bound_ms", "bound_by")}
                    for r in rows if (r["m"], r["k"], r["n"]) in IM2COL_SHAPES],
+        "verify": [{k: r[k] for k in ("m", "k", "n", "ms", "plain_ms",
+                                      "bound_ms", "bound_by")}
+                   for r in rows if r["variant"] == "pc3_tr"
+                   and r["m"] == VERIFY_M],
         "exact": {k: xrep[k] for k in
                   ("ms", "path", "paths", "wrapper_ms", "plain_ms",
                    "bound_ms", "bound_by", "library_ms", "f32_library_ms")}

@@ -8,9 +8,10 @@ layers PC3_tr) through the policy API. The same protocol as
 Run:  PYTHONPATH=src python examples/train_lenet_daism_torch.py [--steps 300]
       [--policy 'cnn/c1=exact,@lm_head=exact,*=pc3_tr'] [--device cpu]
 
-Training is f32 and exact; the sweep evaluates the trained weights with the
-jnp backend (f32 operands; the CUDA kernel is bf16-only). The per-site
-energy report of the reference waits for the port's energy model.
+Training is f32 and exact (f32 convolutions, never TF32); the sweep
+evaluates the trained weights with the jnp backend (f32 operands; the CUDA
+kernel is bf16-only). The mixed policy's per-site resolution and estimated
+multiply energy (the paper's 45 nm model) close the run.
 """
 import argparse
 
@@ -94,7 +95,8 @@ def main(argv=None):
     mixed = P.parse_policy(args.policy)
     print(f"{'mixed(' + args.policy + ')':28s} "
           f"{accuracy(cfg.with_policy(mixed)) * 100:6.2f}%")
-    print("\nsite report: not ported yet (ROADMAP.md section A, item 5)")
+    print()
+    print(P.site_report(mixed))
 
 
 if __name__ == "__main__":

@@ -2,7 +2,13 @@
 from .config import ALL_VARIANTS, Backend, DaismConfig, Variant, mantissa_bits
 from .floatmul import approx_mul, approx_mul_to_f32
 from .gemm import conv2d_im2col, daism_dot, daism_matmul
-from .multiplier import approx_mul_uint, approx_mul_uint_planes, error_distance
+from .multiplier import (
+    approx_mul_int_signmag,
+    approx_mul_uint,
+    approx_mul_uint_normalized,
+    approx_mul_uint_planes,
+    error_distance,
+)
 
 __all__ = [
     "ALL_VARIANTS",
@@ -15,7 +21,9 @@ __all__ = [
     "conv2d_im2col",
     "daism_dot",
     "daism_matmul",
+    "approx_mul_int_signmag",
     "approx_mul_uint",
+    "approx_mul_uint_normalized",
     "approx_mul_uint_planes",
     "error_distance",
 ]

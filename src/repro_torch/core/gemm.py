@@ -136,8 +136,9 @@ def conv2d_im2col(x: torch.Tensor, kernel: torch.Tensor, cfg: DaismConfig,
     (kernels flattened into SRAM rows, paper Fig 4). kernel: (kh, kw, cin,
     cout) (HWIO).
 
-    Exact configs run the library convolution (``F.conv2d``; the reference
-    runs ``lax.conv_general_dilated``) and keep ``x``'s dtype. Approximate
+    Exact configs run the library convolution (``F.conv2d``, never in TF32;
+    the reference runs ``lax.conv_general_dilated``) and keep ``x``'s
+    dtype. Approximate
     configs take the patches with their features ordered (cin, kh, kw), the
     order of the reference's ``conv_general_dilated_patches`` and of
     ``F.unfold``, reorder the kernel to match, and run
@@ -155,7 +156,14 @@ def conv2d_im2col(x: torch.Tensor, kernel: torch.Tensor, cfg: DaismConfig,
     ho = (xn.shape[2] - kh) // stride + 1
     wo = (xn.shape[3] - kw) // stride + 1
     if cfg.exact:
-        out = F.conv2d(xn, kernel.permute(3, 2, 0, 1), stride=stride)
+        # cuDNN runs f32 convolutions in TF32 (10-bit mantissas) while
+        # torch.backends.cudnn.allow_tf32 is on, PyTorch's default; the
+        # reference's f32 conv is full f32, so TF32 is off for this call
+        # alone (bf16 inputs are unaffected by the flag)
+        cudnn = torch.backends.cudnn
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic, allow_tf32=False):
+            out = F.conv2d(xn, kernel.permute(3, 2, 0, 1), stride=stride)
         return out.permute(0, 2, 3, 1)
     patches = F.unfold(xn, (kh, kw), stride=stride)  # (N, cin*kh*kw, Ho*Wo)
     feat = cin * kh * kw

@@ -155,6 +155,51 @@ def approx_mul_uint_planes(
 
 
 # ---------------------------------------------------------------------------
+# Paper Eq. (3): shift-normalized small-multiplier fix for PC2/PC3
+# ---------------------------------------------------------------------------
+
+def approx_mul_uint_normalized(
+    a: torch.Tensor, b: torch.Tensor, n: int, variant: Variant
+) -> torch.Tensor:
+    """c = (a * (b << s)) >> s with s chosen so b's MSB is set (paper Eq. 3).
+
+    The paper identifies PC2/PC3's large error for small multipliers (the
+    sacrificed LSB line + inactive head lines) and *suggests* this shift
+    normalization without evaluating it. As in the JAX package, small
+    multipliers are pre-shifted into the MSB-active operating region and
+    the wired-OR result is shifted back: one leading-zero count + two
+    shifts in the address decoder / output mux.
+    """
+    a = a.to(torch.int32)
+    b = b.to(torch.int32)
+    # leading-zero count of b within n bits (b==0 handled at the end)
+    s = torch.zeros_like(b)
+    bb = b
+    for step in (8, 4, 2, 1):  # unrolled CLZ within n bits
+        if step < 2 * n:
+            take = ((bb << step) < (1 << n)).to(torch.int32) * step
+            take = torch.where(bb == 0, 0, take)
+            bb = torch.where(take > 0, bb << step, bb)
+            s = s + take
+    out = approx_mul_uint(a, bb, n, variant, msb_always_set=True)
+    out = out >> s
+    return torch.where(b == 0, 0, out)
+
+
+# ---------------------------------------------------------------------------
+# Signed wrapper (paper §3.1: sign-magnitude, NOT two's complement)
+# ---------------------------------------------------------------------------
+
+def approx_mul_int_signmag(
+    a: torch.Tensor, b: torch.Tensor, n: int, variant: Variant, **kw
+) -> torch.Tensor:
+    """Signed approximate multiply using sign-magnitude operands (n<=15)."""
+    sign = torch.sign(a.to(torch.int32)) * torch.sign(b.to(torch.int32))
+    mag = approx_mul_uint(a.abs(), b.abs(), n, variant, **kw)
+    return sign * mag
+
+
+# ---------------------------------------------------------------------------
 # Error metric (paper Eq 2)
 # ---------------------------------------------------------------------------
 

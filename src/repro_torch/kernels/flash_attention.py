@@ -307,8 +307,12 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q (B, Sq, H, D), k/v (B, Skv, KH, D) -> (B, Sq, H, D).
 
     CUDA tensors launch the kernel once, on the layout as it is; CPU tensors
-    take :func:`flash_attention_bhsd_plain`.
+    take :func:`flash_attention_bhsd_plain`; ``meta`` tensors (a shape-only
+    trace, ``analyze.trace_site_graph``) get a ``meta`` result, with
+    nothing run or counted.
     """
+    if all(t.device.type == "meta" for t in (q, k, v)):
+        return torch.empty_like(q)
     if q.device.type == "cuda":
         _require_kernel_block_k(block_k)
         return flash_attention_bhsd_kernel(q, k, v, causal=causal,

@@ -15,8 +15,13 @@ def daism_matmul_pallas(a: torch.Tensor, w: torch.Tensor,
     The operands' device picks the implementation: CUDA tensors launch the
     CUDA kernel (which masks ragged edges itself, so nothing is padded) and
     CPU tensors take its plain version. There is no fallback between them;
-    both raise ``ValueError`` on non-bf16 operands.
+    both raise ``ValueError`` on non-bf16 operands. ``meta`` tensors (a
+    shape-only trace) get a ``meta`` result: nothing runs or is counted.
     """
+    if a.device.type == "meta" and w.device.type == "meta":
+        _dm._check_operands(a, w)
+        return torch.empty((a.shape[0], w.shape[1]), dtype=torch.float32,
+                           device="meta")
     if a.device.type == "cuda":
         return _dm.daism_matmul_kernel(a, w, cfg.variant)
     if a.device.type == "cpu" and w.device.type == "cpu":

@@ -10,9 +10,13 @@ engine's latency / throughput / KV-utilization report. ``--smoke`` serves
 the reduced smoke config (small enough for the CPU with ``--device cpu``);
 ``--layers N`` cuts the depth and never the width.
 
-The flags are the JAX launcher's (``repro.launch.serve``) for what is
-ported; ``--preempt``, ``--spec-k`` and ``--shards`` are accepted and refused
-by the engine until those features are ported.
+The flags are the JAX launcher's (``repro.launch.serve``): ``--preempt``
+(with ``--blocks`` to bound the pool) swaps requests out under page
+exhaustion, ``--spec-draft``/``--spec-k`` decode speculatively with a
+cheap draft policy, and after a run under an approximate policy the
+per-group site resolution and energy report is printed. ``--shards`` is
+accepted and refused by the engine until tensor-parallel serving is
+ported.
 """
 import argparse
 import dataclasses
@@ -71,11 +75,21 @@ def main(argv=None):
     p.add_argument("--shards", type=int, default=1,
                    help="tensor-parallel serving (not ported yet)")
     p.add_argument("--preempt", action="store_true",
-                   help="preemption/swap (not ported yet)")
-    p.add_argument("--swap-blocks", type=int, default=0)
+                   help="optimistic admission + preemption: swap the "
+                        "lowest-priority running request's KV pages to a "
+                        "host buffer under pool exhaustion instead of "
+                        "reserving whole lifetimes up front")
+    p.add_argument("--swap-blocks", type=int, default=0,
+                   help="host swap buffer size in KV pages "
+                        "(0 = one full request's worth)")
     p.add_argument("--spec-draft", default="",
-                   help="speculative decoding draft policy (not ported yet)")
-    p.add_argument("--spec-k", type=int, default=0)
+                   help="self-speculative decoding: draft policy (a --tiers "
+                        "name or a raw policy spec) used for cheap draft "
+                        "steps; the group's own step verifies them "
+                        "(greedy outputs stay token-identical)")
+    p.add_argument("--spec-k", type=int, default=0,
+                   help="draft tokens proposed per speculative verify step "
+                        "(0 = speculation off; pair with --spec-draft)")
     p.add_argument("--sync", action="store_true",
                    help="synchronous tick loop (disable the async "
                         "host/device overlap)")
@@ -109,7 +123,6 @@ def main(argv=None):
         shards=args.shards, preempt=args.preempt,
         swap_blocks=args.swap_blocks, overlap=not args.sync,
         spec_draft=args.spec_draft, spec_k=args.spec_k)
-    engine_cfg.check_ported()
     model = build_model(cfg, device=args.device)
     with torch.inference_mode():
         params = model.init(args.seed)
@@ -144,10 +157,23 @@ def main(argv=None):
             print(f"step {ev['step']:4d}  admit  req {ev['request_id']} "
                   f"-> {ev['group']}/row {ev['slot']} "
                   f"[{ev['blocks']} pages{cached}]{joined}")
+        elif ev["event"] == "preempt":
+            print(f"step {ev['step']:4d}  preempt req {ev['request_id']} "
+                  f"({ev['group']}/row {ev['slot']}: {ev['blocks']} pages "
+                  "swapped to host)")
+        elif ev["event"] == "resume":
+            print(f"step {ev['step']:4d}  resume req {ev['request_id']} "
+                  f"-> {ev['group']}/row {ev['slot']} "
+                  f"[{ev['blocks']} pages restored]")
+        elif ev["event"] == "spec_off":
+            print(f"step {ev['step']:4d}  speculation off for group "
+                  f"{ev['group']} (acceptance EWMA {ev['ewma']})")
         else:
             print(f"step {ev['step']:4d}  retire req {ev['request_id']} "
                   f"({ev['group']}/row {ev['slot']} freed, {ev['reason']})")
     print(report.summary())
+    if args.tiers or args.policy or args.variant != "exact":
+        print(engine.resolution_report())
     if report.completed:
         sample = report.completed[0]
         print(f"sample (req {sample.request_id}): {sample.output}")
@@ -171,6 +197,33 @@ def main(argv=None):
     if args.smoke and args.tiers:
         print(f"SMOKE-OK: {report.policy_groups} policy groups served "
               "mixed-tier traffic")
+    if args.smoke and args.preempt and args.blocks:
+        # an explicitly undersized pool (--blocks) must actually exercise
+        # the swap path; auto-sized pools never exhaust
+        if not (report.preemptions and report.resumes):
+            raise SystemExit(
+                "smoke --preempt with a constrained pool must preempt and "
+                f"resume (got {report.preemptions} preemption(s), "
+                f"{report.resumes} resume(s))")
+        if any(s.finish_reason not in ("eos", "length")
+               for s in report.completed):
+            raise SystemExit("smoke --preempt: a request finished abnormally")
+        print(f"SMOKE-OK: {report.preemptions} preemption(s) / "
+              f"{report.resumes} resume(s) under page exhaustion")
+    if args.smoke and args.spec_k:
+        if not report.spec_steps:
+            raise SystemExit(
+                "smoke --spec-k workload never took a speculative verify "
+                "step (draft group ineligible or controller disabled it "
+                "before the first step)")
+        if report.spec_tokens_per_step < 1.0:
+            raise SystemExit(
+                "smoke --spec-k: tokens per verify step "
+                f"{report.spec_tokens_per_step:.2f} < 1.0 — the bonus-token "
+                "guarantee is broken")
+        print(f"SMOKE-OK: speculative decoding took {report.spec_steps} "
+              f"verify step(s), accept rate {report.spec_accept_rate:.2f}, "
+              f"{report.spec_tokens_per_step:.2f} tokens/step")
     return report
 
 

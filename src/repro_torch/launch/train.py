@@ -110,7 +110,9 @@ def main(argv=None):
                              metrics_hook=log)
     print(f"done at step {state.step}; stragglers seen: {state.stragglers}")
     if args.policy or args.daism != "exact":
-        print("site report: not ported yet (ROADMAP.md section A, item 5)")
+        from repro_torch.policy import site_report
+
+        print(site_report(cfg.approx_policy))
     return params, opt, state
 
 

@@ -141,9 +141,10 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if policy is not None:
         flash_ok = (q_pos.dim() == 1 and kv_pos.dim() == 1 and window == 0
                     and softcap == 0.0 and (not causal or sq == skv))
+        # dims of one head's qk^T contraction (the flash kernel's grid unit)
         site_cfg = resolve_site(policy, "kernel", OpKind.ATTN_QK, q.dtype,
                                 record=record, macs=2 * b * h * sq * skv * d,
-                                attn_eligible=flash_ok)
+                                dims=(sq, d, skv), attn_eligible=flash_ok)
         if flash_ok and site_cfg.attn_kernel == "flash":
             return attention_kernel(site_cfg)(q, k, v, causal)
     k = _repeat_kv(k, h // kh)

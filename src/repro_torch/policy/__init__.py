@@ -9,9 +9,11 @@ the resolution rules are those of the JAX package's ``repro.policy``.
 from __future__ import annotations
 
 from .dispatch import (SiteEvent, attention_kernel, clear_log,
-                       effective_attn_config, kernel_stats, matmul_kernel,
-                       observe_sites, policy_conv2d, policy_dot,
-                       resolution_log, resolve_site, validate_for_dtype)
+                       effective_attn_config, energy_per_mult_pj,
+                       estimated_energy_uj, kernel_stats, make_dot,
+                       matmul_kernel, observe_sites, policy_conv2d,
+                       policy_dot, resolution_log, resolve_site, site_report,
+                       validate_for_dtype)
 from .policy import (EXACT, ApproxPolicy, Rule, describe_config,
                      layer_signature, parse_config, parse_policy,
                      plan_segments)
@@ -21,9 +23,10 @@ __all__ = [
     "ApproxPolicy", "Rule", "OpKind", "EXACT",
     "parse_policy", "parse_config", "describe_config",
     "site_scope", "current_path", "current_prefix",
-    "policy_dot", "policy_conv2d", "resolve_site", "validate_for_dtype",
-    "observe_sites", "SiteEvent",
-    "resolution_log", "kernel_stats", "clear_log", "matmul_kernel",
+    "make_dot", "policy_dot", "policy_conv2d", "resolve_site",
+    "validate_for_dtype", "observe_sites", "SiteEvent", "energy_per_mult_pj",
+    "site_report", "resolution_log", "estimated_energy_uj",
+    "kernel_stats", "clear_log", "matmul_kernel",
     "attention_kernel", "effective_attn_config",
     "plan_segments", "layer_signature",
 ]

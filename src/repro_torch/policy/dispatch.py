@@ -4,7 +4,8 @@ The single injection point between models and the DAISM GEMM:
 
 * :func:`policy_dot` and :func:`policy_conv2d` are what models call:
   ``policy_dot(policy, x, w, name=..., kind=...)`` resolves the site under
-  the ambient :mod:`~repro_torch.policy.sites` scope and runs it.
+  the ambient :mod:`~repro_torch.policy.sites` scope and runs it;
+  :func:`make_dot` binds one policy into such a ``dot`` callable.
 * Backend/dtype combinations are validated at resolution (actionable errors
   naming the site), and the decision is recorded in a per-policy resolution
   log with the site's multiply count.
@@ -14,9 +15,13 @@ The single injection point between models and the DAISM GEMM:
 
 * :func:`observe_sites` delivers a :class:`SiteEvent` (with the GEMM's
   dims) for every site resolved inside it.
+* :func:`site_report` and :func:`estimated_energy_uj` price the logged
+  sites with the paper's analytical energy model (``core/energy.py``).
 
-The energy report (``site_report``, ``estimated_energy_uj``) needs
-``core/energy.py``, which comes with a later part of the port.
+The log records a site every time it runs, so it holds the last *executed*
+shape of each site; the reference records at trace time (the last *traced*
+shape). After one forward at one shape the two logs, and the reports, are
+the same.
 """
 from __future__ import annotations
 
@@ -27,9 +32,9 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.core.config import DaismConfig, dtype_name
+from repro_torch.core.config import Backend, DaismConfig, Variant, dtype_name
 
-from .policy import EXACT, ApproxPolicy
+from .policy import EXACT, ApproxPolicy, describe_config
 from .sites import OpKind, current_path, current_repeat
 
 _GEMM_DTYPES = ("bfloat16", "float32")
@@ -137,6 +142,68 @@ def observe_sites(callback: Callable[[SiteEvent], None]):
         yield
     finally:
         _OBSERVERS.remove(callback)
+
+
+def _energy_per_mult_pj(cfg: DaismConfig, dtype_name: str) -> float:
+    """Estimated pJ per multiplication (core/energy model, Eq 4-6)."""
+    from repro_torch.core import energy as E
+
+    if dtype_name not in ("bfloat16", "float32"):
+        dtype_name = "float32"
+    exp = E.exponent_handling_energy(dtype_name)
+    if cfg.exact:
+        return E.total(E.eyeriss_energy_per_mult(
+            dtype_name, truncated=False)) + exp
+    return E.total(E.daism_energy_per_mult(cfg.variant, dtype_name)) + exp
+
+
+def energy_per_mult_pj(cfg: DaismConfig, dtype_name: str) -> float:
+    """Public per-mult energy estimate (the site graph's records use it)."""
+    return _energy_per_mult_pj(cfg, dtype_name)
+
+
+def site_report(policy: ApproxPolicy) -> str:
+    """Human-readable per-site resolution table with energy estimates.
+
+    Covers the sites run so far under ``policy``; ``macs`` is the multiply
+    count of the most recent call of each site (batch-shaped), and the
+    energy column is macs x the analytical per-mult model.
+    """
+    log = _LOG.get(policy, {})
+    if not log:
+        return (f"policy {policy.name or '<anonymous>'}: "
+                "no sites resolved yet (trace a model first)")
+    rows, total_pj, exact_pj = [], 0.0, 0.0
+    for (path, kind), (cfg, dtype_name, macs) in sorted(log.items()):
+        pj = macs * _energy_per_mult_pj(cfg, dtype_name)
+        base = macs * _energy_per_mult_pj(
+            DaismConfig(variant=Variant.EXACT, backend=Backend.EXACT),
+            dtype_name)
+        total_pj += pj
+        exact_pj += base
+        rows.append((path, kind.value, describe_config(cfg), macs, pj))
+    width = max(len(r[0]) for r in rows)
+    lines = [f"== per-site resolution ({policy.name or '<anonymous>'}) =="]
+    for path, kind, conf, macs, pj in rows:
+        lines.append(f"  {path:<{width}}  {kind:<10s} {conf:<18s} "
+                     f"{macs:>12,d} mults  {pj / 1e6:>10.2f} uJ")
+    if exact_pj > 0:
+        lines.append(
+            f"  estimated multiply energy {total_pj / 1e6:.2f} uJ "
+            f"(saves {100 * (1 - total_pj / exact_pj):.1f}% vs all-exact "
+            f"{exact_pj / 1e6:.2f} uJ)")
+    return "\n".join(lines)
+
+
+def estimated_energy_uj(policy: ApproxPolicy) -> Tuple[float, float]:
+    """(policy_energy, all_exact_energy) in uJ over the logged sites."""
+    log = _LOG.get(policy, {})
+    total = base = 0.0
+    exact_cfg = DaismConfig(variant=Variant.EXACT, backend=Backend.EXACT)
+    for (_, _), (cfg, dtype_name, macs) in log.items():
+        total += macs * _energy_per_mult_pj(cfg, dtype_name)
+        base += macs * _energy_per_mult_pj(exact_cfg, dtype_name)
+    return total / 1e6, base / 1e6
 
 
 # ---------------------------------------------------------------------------
@@ -248,6 +315,12 @@ def policy_dot(policy: ApproxPolicy, x, w, *, name: str,
         return x @ w.to(x.dtype)
     out = matmul_kernel(cfg)(x.reshape(-1, k), w)
     return out.reshape(*x.shape[:-1], n).to(x.dtype)
+
+
+def make_dot(policy: ApproxPolicy) -> Callable:
+    """Bind ``policy`` into a ``dot(x, w, *, name, kind, record)`` callable,
+    the injectable matmul models consume."""
+    return functools.partial(policy_dot, policy)
 
 
 def policy_conv2d(policy: ApproxPolicy, x, kernel, *, name: str,

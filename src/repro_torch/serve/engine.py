@@ -1,5 +1,6 @@
 """Continuous-batching engine over a paged KV cache: per-request policy
-tiers, chunked prefill, prefix caching and an asynchronous tick loop.
+tiers, chunked prefill, prefix caching, an asynchronous tick loop,
+preemption/swap and self-speculative decoding.
 
 Ported from ``repro/serve/engine.py``:
 
@@ -23,13 +24,34 @@ Ported from ``repro/serve/engine.py``:
   name from ``EngineConfig.tiers``, a raw spec, an ``ApproxPolicy``, or
   None = the base model's). Requests batch by resolved policy: one scheduler
   and one step per group, all groups sharing the page pool and the params.
+* **Preemption/swap** — ``preempt=True`` switches admission from
+  whole-lifetime page reservation to optimistic prompt-only allocation
+  with on-demand ``extend`` at every block boundary. Under page exhaustion
+  the engine swaps the lowest-priority (tie: youngest) *decoding* request
+  out to a host-side buffer — an exact gather of its pages — frees its
+  blocks and rows, and resumes it later token-identically (a scatter back
+  through a fresh table; unmapped entries go to the pool's sink cell). The
+  swap buffer holds at most ``swap_blocks`` pages (0 = one full request);
+  an undersized buffer stalls instead of deadlocking. Admission may
+  preempt only strictly-lower-priority victims; extension of a running
+  request may preempt equals (LIFO), so older requests finish.
+* **Self-speculative decoding** — ``spec_draft``/``spec_k`` chain
+  ``spec_k`` S=1 draft steps under a cheap approximate policy (the same
+  parameter tensors: DAISM's approximate multiplier is a free
+  weight-sharing draft model) and verify all candidates in one batched
+  S=spec_k+1 step under the group's own policy
+  (``DecoderLM.paged_verify_step``), with no host wait between them.
+  Greedy accept/reject + bonus token keeps the output token-identical to
+  plain decode; drafted K/V is scratch the verify overwrites in place, the
+  pool truncates pages past the accepted length, and a per-group
+  acceptance EWMA turns speculation off where it does not pay.
 * **Accounting** — per-request TTFT / latency, inter-token gaps, tok/s,
   step percentiles, KV utilization, peak concurrency, prefix-cache hits,
-  host idle time, and the steps each group launched.
+  preemptions/resumes, speculation, host idle time, and the steps each
+  group launched.
 
-Not ported yet (they raise ``NotImplementedError`` naming the field):
-preemption/swap (``preempt``), speculative decoding (``spec_k``) and
-tensor-parallel sharding (``shards > 1``).
+Not ported yet: tensor-parallel sharding (``shards > 1`` raises
+``NotImplementedError``).
 
 Greedy (argmax) sampling keeps the output deterministic, so the same
 requests give the same tokens as the JAX engine on the same weights.
@@ -48,7 +70,7 @@ from repro_torch.policy import ApproxPolicy, parse_policy
 from repro_torch.runtime.device import resolve_device
 from repro_torch.runtime.watchdog import StepWatchdog
 
-from .kv_pool import SENTINEL, BlockPool
+from .kv_pool import SENTINEL, BlockPool, blocks_needed
 from .scheduler import Request, RequestState, Scheduler
 
 
@@ -85,10 +107,20 @@ class EngineConfig:
     block_size``). ``tiers`` registers named policy specs requests can
     reference. ``overlap=False`` disables the async tick loop.
 
-    ``shards``, ``preempt``/``swap_blocks`` and ``spec_draft``/``spec_k``/
-    ``spec_min_accept`` are validated as in the reference; the engine
-    refuses ``shards > 1``, ``preempt=True`` and ``spec_k > 0``, which are
-    not ported yet.
+    ``preempt`` switches whole-lifetime page reservation to optimistic
+    allocation + swap-out under exhaustion (``swap_blocks`` pages of host
+    buffer, 0 = one full request).
+
+    ``spec_draft`` + ``spec_k`` enable self-speculative decoding: every
+    decode tick drafts ``spec_k`` tokens per row under the (cheap,
+    weight-sharing) ``spec_draft`` policy — a tier name or raw spec — then
+    one batched verify step under the group's own policy accepts the
+    longest matching prefix plus a bonus token (token-identical to plain
+    greedy decode). A per-group EWMA of the draft acceptance rate
+    auto-disables speculation below ``spec_min_accept``.
+
+    ``shards`` is validated as in the reference; the engine refuses
+    ``shards > 1`` (tensor-parallel serving is not ported yet).
     """
 
     num_slots: int = 4
@@ -179,14 +211,6 @@ class EngineConfig:
 
     def check_ported(self) -> None:
         """Refuse the engine features that are not ported yet."""
-        if self.preempt:
-            raise NotImplementedError(
-                "EngineConfig.preempt=True (preemption/swap) is not ported "
-                "yet")
-        if self.spec_k:
-            raise NotImplementedError(
-                "EngineConfig.spec_k>0 (speculative decoding) is not ported "
-                "yet")
         if self.shards > 1:
             raise NotImplementedError(
                 "EngineConfig.shards>1 (tensor-parallel serving) is not "
@@ -201,6 +225,13 @@ class EngineConfig:
     @property
     def max_blocks_per_seq(self) -> int:
         return self.max_seq // self.block_size
+
+    @property
+    def swap_capacity(self) -> int:
+        """Host swap buffer size in pages (0 when preemption is off)."""
+        if not self.preempt:
+            return 0
+        return self.swap_blocks or self.max_blocks_per_seq
 
 
 @dataclasses.dataclass
@@ -238,13 +269,25 @@ class ServeReport:
     kv_util_peak: float
     peak_active_requests: int
     prefix_hits: int
+    preemptions: int           # requests swapped out under page exhaustion
+    resumes: int               # swapped requests restored and continued
     policy_groups: int
     events: List[Dict[str, Any]]
-    # group label -> steps launched (prefill + decode), for launch accounting
+    # speculative-decoding accounting (all zero when spec is off)
+    spec_steps: int = 0        # batched verify steps launched
+    spec_drafted: int = 0      # draft tokens proposed (rows x spec_k)
+    spec_accepted: int = 0     # drafts accepted by the verify step
+    spec_accept_rate: float = 0.0   # accepted / drafted
+    spec_tokens_per_step: float = 0.0  # emitted per row-verify (incl. bonus)
+    spec_disabled_groups: int = 0  # groups auto-disabled by the EWMA floor
+    # launch accounting: group label -> steps its own model launched
+    # (prefill + decode + verify), and -> draft steps launched for it
     group_steps: Dict[str, int] = dataclasses.field(default_factory=dict)
+    group_draft_steps: Dict[str, int] = dataclasses.field(
+        default_factory=dict)
 
     def summary(self) -> str:
-        return "\n".join([
+        lines = [
             f"requests {len(self.completed)}  generated "
             f"{self.generated_tokens} tok  wall {self.wall_s:.2f}s  "
             f"({self.tokens_per_s:.1f} tok/s decode)",
@@ -265,15 +308,25 @@ class ServeReport:
             f"{self.kv_util_peak * 100:.1f}%;  peak concurrency "
             f"{self.peak_active_requests};  {self.prefix_hits} prefix-cache "
             f"block hit(s);  {self.policy_groups} policy group(s)",
+            f"{self.preemptions} preemption(s) / {self.resumes} resume(s);  "
             f"{self.joined_mid_stream} request(s) joined the running batch "
             "mid-stream (continuous batching)",
-        ])
+        ]
+        if self.spec_steps:
+            lines.append(
+                f"speculative: {self.spec_steps} verify step(s), "
+                f"{self.spec_accepted}/{self.spec_drafted} drafts accepted "
+                f"({self.spec_accept_rate * 100:.0f}%), "
+                f"{self.spec_tokens_per_step:.2f} tokens/verify-step"
+                + (f";  {self.spec_disabled_groups} group(s) auto-disabled"
+                   if self.spec_disabled_groups else ""))
+        return "\n".join(lines)
 
 
 class _PolicyGroup:
     """One resolved approximation policy: a model rebound to that policy, a
-    scheduler over ``num_slots`` decode rows, and the per-row host-side
-    metadata (block tables, last tokens)."""
+    scheduler over ``num_slots`` decode rows, the per-row host-side
+    metadata (block tables, last tokens) and its speculation state."""
 
     def __init__(self, label: str, policy: Optional[ApproxPolicy], model,
                  cfg: EngineConfig):
@@ -284,7 +337,14 @@ class _PolicyGroup:
         self.tables = np.full((cfg.num_slots, cfg.max_blocks_per_seq),
                               SENTINEL, np.int32)
         self.last_tok = np.zeros((cfg.num_slots,), np.int32)
-        self.steps = 0  # steps launched (prefill + decode)
+        self.steps = 0        # steps its model launched (prefill/decode/verify)
+        self.draft_steps = 0  # draft steps launched for its rows
+        # speculative-decode state: eligibility (the engine disables groups
+        # whose policy *is* the draft policy) and the dynamic-k controller's
+        # acceptance EWMA (spec_on drops to False below the floor)
+        self.spec_on = False
+        self.spec_ewma: Optional[float] = None
+        self.spec_obs = 0
 
     @property
     def prefill_rows(self) -> Dict[int, RequestState]:
@@ -314,9 +374,14 @@ class ServeEngine:
     card; ``params`` must live there). ``run`` blocks until every submitted
     request completes."""
 
-    # ticks with arrived work but no launches and no admissions before the
-    # engine declares a livelock
+    # ticks with active/arrived work but no launches and no admissions
+    # before the engine declares a livelock (undersized swap buffer)
     _STUCK_TICKS = 1000
+    # dynamic-k controller: EWMA smoothing of the per-verify acceptance
+    # rate, and how many verify steps to observe before the
+    # ``spec_min_accept`` floor may disable a group's speculation
+    _SPEC_EWMA_ALPHA = 0.4
+    _SPEC_WARMUP = 4
 
     def __init__(self, model, params, cfg: EngineConfig, device="cuda"):
         if not hasattr(model, "paged_step"):
@@ -341,9 +406,24 @@ class ServeEngine:
         self.kv = model.init_paged_cache(cfg.blocks, cfg.block_size)
         self._tiers: Dict[str, ApproxPolicy] = {
             name: parse_policy(spec, name=name) for name, spec in cfg.tiers}
+
+        # self-speculative decoding: one draft model (the engine's weights
+        # rebound to the cheap draft policy; it reads the same parameter
+        # tensors) shared by every eligible group — the verify is per-group
+        self._spec_key: Optional[ApproxPolicy] = None
+        self._draft_model = None
+        if cfg.spec_k:
+            from repro_torch.models.registry import build_model
+
+            draft_policy = self._resolve_policy(cfg.spec_draft)
+            self._spec_key = dataclasses.replace(draft_policy, name="")
+            self._draft_model = build_model(
+                self.model.cfg.with_policy(draft_policy), device=self.device)
+
         self.groups: Dict[Optional[ApproxPolicy], _PolicyGroup] = {}
         self._pending_alloc: Dict[int, Tuple[List[int], int]] = {}
         self._next_id = 0
+        self._swapped_blocks = 0
 
         self.step = 0
         self.events: List[Dict[str, Any]] = []
@@ -355,7 +435,32 @@ class ServeEngine:
         self._util_samples: List[float] = []
         self._util_peak = 0.0
         self._peak_active = 0
+        self._preemptions = 0
+        self._resumes = 0
         self._stuck_ticks = 0
+        # speculative-decoding accounting
+        self._spec_steps = 0       # batched verify launches
+        self._spec_row_steps = 0   # (row, verify) pairs folded back
+        self._spec_drafted = 0
+        self._spec_accepted = 0
+        self._spec_emitted = 0     # tokens emitted by verify (incl. bonus)
+        self._spec_disabled = 0    # groups shut off by the EWMA floor
+
+    # -- numerics policy ---------------------------------------------------
+
+    def resolution_report(self) -> str:
+        """Per-site approximation resolution, one section per policy group
+        (sites appear once a group's steps have run; see
+        repro_torch.policy.site_report)."""
+        from repro_torch.policy import site_report
+
+        parts = []
+        for group in self.groups.values():
+            parts.append(f"== group {group.label} ==")
+            parts.append(site_report(group.model.cfg.approx_policy))
+        if not parts:
+            parts = [site_report(self.model.cfg.approx_policy)]
+        return "\n".join(parts)
 
     # -- request intake ----------------------------------------------------
 
@@ -374,6 +479,19 @@ class ServeEngine:
             f"Request.policy must be None, a tier name, a spec string, or "
             f"an ApproxPolicy (got {type(policy).__name__})")
 
+    def _spec_eligible(self, key: Optional[ApproxPolicy]) -> bool:
+        """Speculation is per-group: a group whose resolved policy *is* the
+        draft policy would verify with the numerics it drafted with — a
+        pure loss."""
+        if self._spec_key is None:
+            return False
+        group_policy = key
+        if group_policy is None:  # base group: the model's own policy
+            group_policy = getattr(self.model.cfg, "approx_policy", None)
+        if group_policy is None:
+            return True
+        return dataclasses.replace(group_policy, name="") != self._spec_key
+
     def _group_for(self, policy: Optional[ApproxPolicy]) -> _PolicyGroup:
         # the group key ignores the policy's display name: a tier name and
         # the equivalent raw spec share one group and one prefix cache
@@ -390,6 +508,7 @@ class ServeEngine:
                 model = build_model(self.model.cfg.with_policy(policy),
                                     device=self.device)
             group = _PolicyGroup(label, key, model, self.cfg)
+            group.spec_on = self._spec_eligible(key)
             self.groups[key] = group
         return group
 
@@ -420,13 +539,31 @@ class ServeEngine:
                                 request_id=state.request_id,
                                 slot=slot, group=state.group, **kw))
 
-    def _try_reserve(self, group: _PolicyGroup, state: RequestState) -> bool:
-        """Admission gate: reserve the request's whole-lifetime pages
-        (prompt + gen - 1), so an admitted request can always finish."""
+    def _try_reserve(self, group: _PolicyGroup, state: RequestState,
+                     allow_preempt: bool = False) -> bool:
+        """Admission gate. Reservation depends on the engine mode: whole
+        lifetime (prompt + gen - 1; an admitted request can always finish)
+        by default, prompt-only when preemption is on (optimistic — decode
+        extends on demand and swaps victims out under exhaustion),
+        written-length for a resuming swapped request. With
+        ``allow_preempt``, strictly-lower-priority running requests are
+        swapped out to make room."""
         req = state.request
-        total = len(req.prompt) + req.max_new_tokens - 1
-        alloc = self.pool.allocate(state.request_id, req.prompt,
-                                   max(total, 1), policy_key=group.policy)
+        if state.swap is not None:
+            total = state.seq_len        # resume: cover what was written
+        elif self.cfg.preempt:
+            total = len(req.prompt)      # optimistic: prompt only
+        else:
+            total = len(req.prompt) + req.max_new_tokens - 1
+        args = (state.request_id, req.prompt, max(total, 1))
+        alloc = self.pool.allocate(*args, policy_key=group.policy)
+        while alloc is None and allow_preempt:
+            victim = self._pick_victim(exclude_id=state.request_id,
+                                       max_priority=req.priority)
+            if victim is None:
+                break
+            self._preempt(*victim)
+            alloc = self.pool.allocate(*args, policy_key=group.policy)
         if alloc is None:
             return False
         self._pending_alloc[state.request_id] = alloc
@@ -437,12 +574,126 @@ class ServeEngine:
             table, cached_len = self._pending_alloc.pop(state.request_id)
             group.tables[state.slot] = SENTINEL
             group.tables[state.slot, :len(table)] = table
+            if state.swap is not None:
+                self._swap_restore(group, state, table)
+                continue
             state.next_pos = cached_len
             state.cached_len = cached_len
             self._event("admit", state, state.slot,
                         joined_running=state.joined_running_batch,
                         blocks=len(table),
                         cached_blocks=cached_len // self.cfg.block_size)
+
+    # -- preemption / swap -------------------------------------------------
+
+    def _pick_victim(self, exclude_id: Optional[int] = None,
+                     max_priority: Optional[int] = None):
+        """Lowest-priority (tie: youngest admission) *decoding* request
+        whose pages fit in the remaining swap buffer. Prefilling rows are
+        never preempted — their pages are mid-write. Returns
+        ``(group, slot, state)`` or None."""
+        best = None
+        free_swap = self.cfg.swap_capacity - self._swapped_blocks
+        for group in self.groups.values():
+            for slot, st in group.sched.active.items():
+                if st.prefilling or st.request_id == exclude_id:
+                    continue
+                if (max_priority is not None
+                        and st.request.priority >= max_priority):
+                    continue
+                if blocks_needed(st.seq_len,
+                                 self.cfg.block_size) > free_swap:
+                    continue
+                key = (st.request.priority, -st.admit_step, -st.request_id)
+                if best is None or key < best[0]:
+                    best = (key, group, slot, st)
+        return None if best is None else best[1:]
+
+    def _swap_idx(self, table: np.ndarray) -> torch.Tensor:
+        """Physical cells of a (MB,) SENTINEL-padded table, page by page;
+        every cell of an unmapped page is the sink cell (index ``cells``)."""
+        cells = self.kv["k"].shape[1] - 1
+        bs = self.cfg.block_size
+        t = torch.from_numpy(table).to(self.device).long()
+        base = torch.where(t < 0, cells, t * bs)
+        return (base[:, None] + torch.arange(bs, device=self.device)
+                ).reshape(-1).clamp(max=cells)
+
+    def _preempt(self, group: _PolicyGroup, slot: int, state: RequestState):
+        """Swap ``state`` out: exact gather of its written pages into a host
+        buffer (the copy waits for the card: part of the preemption's
+        cost), then free its blocks and decode row."""
+        n_blocks = blocks_needed(state.seq_len, self.cfg.block_size)
+        table = np.full((self.cfg.max_blocks_per_seq,), SENTINEL, np.int32)
+        table[:n_blocks] = group.tables[slot, :n_blocks]
+        cells = self.kv["k"].shape[1] - 1
+        idx = self._swap_idx(table).clamp(max=cells - 1)
+        with torch.inference_mode():
+            state.swap = {"k": self.kv["k"][:, idx].cpu(),
+                          "v": self.kv["v"][:, idx].cpu(),
+                          "blocks": n_blocks}
+        self._swapped_blocks += n_blocks
+        self.pool.free(state.request_id)
+        group.sched.requeue(slot)
+        group.tables[slot] = SENTINEL
+        self._preemptions += 1
+        self._event("preempt", state, slot, blocks=n_blocks)
+
+    def _swap_restore(self, group: _PolicyGroup, state: RequestState,
+                      table: List[int]):
+        """Scatter a resuming request's swapped pages through its fresh
+        block table — bit-exact restore, so greedy decode continues
+        token-identically from its last emitted token."""
+        swap, state.swap = state.swap, None
+        n_old = swap["blocks"]
+        self._swapped_blocks -= n_old
+        # only the written blocks are restored; any extra freshly-allocated
+        # blocks cover future positions and are written by decode itself.
+        # Unmapped entries land in the sink cell, never in a real page.
+        t = np.full((self.cfg.max_blocks_per_seq,), SENTINEL, np.int32)
+        t[:n_old] = table[:n_old]
+        idx = self._swap_idx(t)
+        with torch.inference_mode():
+            for name in ("k", "v"):
+                self.kv[name].index_copy_(1, idx, swap[name].to(self.device))
+        self.pool.advance(state.request_id, state.seq_len)
+        self.pool.commit_prefix(state.request_id)
+        group.last_tok[state.slot] = state.output[-1]
+        self._resumes += 1
+        self._event("resume", state, state.slot, blocks=len(table))
+
+    def _ensure_blocks(self, group: _PolicyGroup, state: RequestState,
+                       ahead: int = 0) -> bool:
+        """Grow the row's table to cover its next token write (a no-op
+        inside the reservation); under preemption, swap victims out on
+        exhaustion. False = the row stalls this tick (no decode step).
+
+        ``ahead`` asks for extra speculative coverage (the draft window
+        past the next write). It is best-effort and never evicts anyone:
+        if the pool can't cover it, the row falls back to plain
+        single-token growth — the verify caps acceptance at whatever
+        coverage the row actually got — and only *that* baseline need may
+        preempt victims."""
+        if ahead:
+            table = self.pool.extend(state.request_id,
+                                     state.seq_len + 1 + ahead)
+            if table is not None:
+                group.tables[state.slot, :len(table)] = table
+                return True
+        need = state.seq_len + 1
+        table = self.pool.extend(state.request_id, need)
+        while table is None and self.cfg.preempt:
+            victim = self._pick_victim(exclude_id=state.request_id)
+            if victim is None:
+                return False
+            self._preempt(*victim)
+            table = self.pool.extend(state.request_id, need)
+        if table is None:
+            return False
+        group.tables[state.slot, :len(table)] = table
+        return True
+
+    # -- token bookkeeping -------------------------------------------------
 
     def _append_token(self, group: _PolicyGroup, state: RequestState,
                       token: int):
@@ -523,23 +774,76 @@ class ServeEngine:
         return {"group": group, "kind": "prefill", "rows": rows,
                 "finishing": finishing, "tok": tok, "keep": keep, "t0": t0}
 
-    def _launch_decode(self, group: _PolicyGroup) -> Optional[dict]:
-        """Launch one decode token for every generating row of ``group``;
-        prefill and idle rows are masked out."""
-        rows = group.decode_rows
-        if not rows:
-            return None
-        r = self.cfg.num_slots
+    def _decode_inputs(self, group: _PolicyGroup, stalled: Set[int]):
+        """(rows, tables, pos) of ``group``'s generating rows that are not
+        stalled this tick; other rows keep sentinel tables (masked out)."""
+        rows = {s: st for s, st in group.decode_rows.items()
+                if st.request_id not in stalled}
         tables = np.full_like(group.tables, SENTINEL)
-        pos = np.zeros((r,), np.int32)
+        pos = np.zeros((self.cfg.num_slots,), np.int32)
         for slot, state in rows.items():
             tables[slot] = group.tables[slot]
             pos[slot] = state.seq_len  # write position of the fed-back token
+        return rows, tables, pos
+
+    def _launch_decode(self, group: _PolicyGroup,
+                       stalled: Set[int]) -> Optional[dict]:
+        """Launch one decode token for every generating row of ``group``;
+        prefill, stalled and idle rows are masked out."""
+        rows, tables, pos = self._decode_inputs(group, stalled)
+        if not rows:
+            return None
         t0 = time.perf_counter()
         tok, keep = self._launch(group, group.last_tok[:, None].copy(),
-                                 tables, pos, np.zeros((r,), np.int32))
+                                 tables, pos,
+                                 np.zeros((self.cfg.num_slots,), np.int32))
         return {"group": group, "kind": "decode", "rows": rows,
                 "tok": tok, "keep": keep, "t0": t0}
+
+    def _launch_spec(self, group: _PolicyGroup,
+                     stalled: Set[int]) -> Optional[dict]:
+        """Speculative decode for ``group``'s generating rows: chain
+        ``spec_k`` S=1 draft steps (draft-policy model, same pages — the
+        drafted K/V is scratch the verify step overwrites in place), then
+        launch the batched S=spec_k+1 verify under the group's own policy.
+        All ``spec_k + 1`` steps go out without a host wait; the
+        accept/reject fold happens at apply time from one fetched
+        ``(greedy, n_acc)`` pair.
+
+        Each row's acceptance is capped by its actual page coverage
+        (``caps``): when the speculative ``extend`` failed, candidate
+        positions past the mapped pages saw dropped writes/stale reads,
+        so only the in-coverage prefix — whose attention window is fully
+        mapped — is trusted. Positions ``<= cap`` attend only mapped,
+        exactly-written K/V, so the accepted tokens are exact."""
+        rows, tables, pos = self._decode_inputs(group, stalled)
+        if not rows:
+            return None
+        cfg = self.cfg
+        caps: Dict[int, int] = {}
+        for slot, state in rows.items():
+            cov = int((group.tables[slot] != SENTINEL).sum()) * cfg.block_size
+            caps[slot] = max(0, cov - 1 - state.seq_len)
+        t0 = time.perf_counter()
+        keep: list = []
+        with torch.inference_mode():
+            jt = self._to_device(tables, keep)
+            jp = self._to_device(pos, keep)
+            zero = torch.zeros_like(jp)
+            toks = [self._to_device(group.last_tok, keep).long()]
+            for j in range(cfg.spec_k):
+                toks.append(group_step(
+                    self._draft_model, self.params, self.kv,
+                    toks[-1][:, None], jt, jp + j, zero,
+                    block_size=cfg.block_size))
+            cand = torch.stack(toks, dim=1)  # (R, spec_k+1) candidate window
+            greedy, n_acc, _ = group.model.paged_verify_step(
+                self.params, cand, dict(self.kv, block_tables=jt, pos=jp),
+                block_size=cfg.block_size)
+        group.draft_steps += cfg.spec_k
+        group.steps += 1
+        return {"group": group, "kind": "spec", "rows": rows, "tok": greedy,
+                "n_acc": n_acc, "caps": caps, "keep": keep, "t0": t0}
 
     def _fetch(self, rec: dict):
         """Wait for a launched step's tokens: the only host wait in the
@@ -548,6 +852,8 @@ class ServeEngine:
             return
         t0 = time.perf_counter()
         rec["np_tok"] = rec.pop("tok").cpu().numpy()
+        if "n_acc" in rec:
+            rec["np_acc"] = rec.pop("n_acc").cpu().numpy()
         rec.pop("keep")
         t1 = time.perf_counter()
         self._idle_s += t1 - t0
@@ -568,6 +874,43 @@ class ServeEngine:
                     self._append_token(group, state, int(tok[slot]))
                 if state.request_id in self.pool:
                     self.pool.advance(state.request_id, state.seq_len)
+        elif rec["kind"] == "spec":
+            self._step_times.append(dt)
+            self.watchdog.observe(dt)
+            k = self.cfg.spec_k
+            rates = []
+            self._spec_steps += 1
+            for slot, state in list(rows.items()):
+                greedy = tok[slot]
+                raw = int(rec["np_acc"][slot])      # draft-quality signal
+                n_acc = min(raw, rec["caps"][slot])  # coverage-capped
+                emitted = 0
+                for j in range(n_acc + 1):
+                    self._append_token(group, state, int(greedy[j]))
+                    emitted += 1
+                    if state.slot < 0:  # retired (eos / length): exact
+                        break           # decode would have stopped here too
+                self._spec_row_steps += 1
+                self._spec_drafted += k
+                self._spec_accepted += emitted - 1
+                self._spec_emitted += emitted
+                state.spec_drafted += k
+                state.spec_accepted += emitted - 1
+                rates.append(min(raw, k) / k)
+                if state.request_id in self.pool:
+                    self.pool.advance(state.request_id, state.seq_len)
+                    if self.cfg.preempt:
+                        # roll the speculative reservation back: pages
+                        # covering only rejected positions return to the
+                        # pool; the partially-kept page's stale cells are
+                        # overwritten by the next window
+                        freed = self.pool.truncate(state.request_id,
+                                                   state.seq_len)
+                        if freed:
+                            row = group.tables[state.slot]
+                            mapped = int((row != SENTINEL).sum())
+                            row[mapped - freed:] = SENTINEL
+            self._update_spec_controller(group, rates)
         else:
             self._step_times.append(dt)
             self.watchdog.observe(dt)
@@ -575,6 +918,27 @@ class ServeEngine:
                 self._append_token(group, state, int(tok[slot]))
                 if state.request_id in self.pool:
                     self.pool.advance(state.request_id, state.seq_len)
+
+    def _update_spec_controller(self, group: _PolicyGroup,
+                                rates: List[float]):
+        """Dynamic-k controller: EWMA the verify acceptance rate and shut a
+        group's speculation off (plain decode) once the warmed-up average
+        sinks below ``spec_min_accept``. Token identity never depends on
+        the controller: a disabled group just takes the S=1 path."""
+        if not rates:
+            return
+        rate = float(np.mean(rates))
+        a = self._SPEC_EWMA_ALPHA
+        group.spec_ewma = (rate if group.spec_ewma is None
+                           else a * rate + (1 - a) * group.spec_ewma)
+        group.spec_obs += 1
+        if (group.spec_obs >= self._SPEC_WARMUP
+                and group.spec_ewma < self.cfg.spec_min_accept):
+            group.spec_on = False
+            self._spec_disabled += 1
+            self.events.append(dict(
+                step=self.step, event="spec_off", request_id=-1, slot=-1,
+                group=group.label, ewma=round(group.spec_ewma, 3)))
 
     # -- tick loop -----------------------------------------------------------
 
@@ -585,12 +949,13 @@ class ServeEngine:
                         and waiting.request.arrival_step <= self.step):
                     waiting.arrival_time = now
 
-    def _admit_all(self) -> bool:
+    def _admit_all(self, allow_preempt: bool) -> bool:
         any_admitted = False
         for group in self.groups.values():
             admitted = group.sched.admit(
                 self.step,
-                can_admit=lambda st, g=group: self._try_reserve(g, st))
+                can_admit=lambda st, g=group: self._try_reserve(
+                    g, st, allow_preempt))
             if admitted:
                 self._admit(group, admitted)
                 any_admitted = True
@@ -606,33 +971,54 @@ class ServeEngine:
     def tick(self) -> bool:
         """One engine iteration, in phases:
 
-        1. *launch* every group's prefill chunk + decode step without
-           waiting (``overlap=False``: fetch right after each launch);
+        0. grow decode tables for this tick's writes (may preempt/swap);
+        1. *launch* every group's prefill chunk + decode (or speculative)
+           step without waiting (``overlap=False``: fetch right after each
+           launch);
         2. host work while the card runs: arrival stamping, admission +
            page reservation, utilization sampling;
         3. token fetch, then fold tokens into scheduler state;
-        4. post-retirement admission (pages just freed).
+        4. post-retirement admission (pages just freed; preemption/resume
+           allowed here).
 
         Returns False when fully drained."""
         if not any(g.sched.has_work for g in self.groups.values()):
             return False
+        stalled: Set[int] = set()
+        for group in self.groups.values():
+            # speculative rows want spec_k extra positions of coverage, but
+            # only in preempt mode (on-demand growth + truncate rollback);
+            # a whole-lifetime reservation already covers every position
+            # acceptance can reach
+            ahead = (self.cfg.spec_k
+                     if group.spec_on and self.cfg.preempt else 0)
+            for _slot, state in list(group.decode_rows.items()):
+                if state.request_id not in self.pool:
+                    continue  # preempted as a victim earlier this phase
+                if not self._ensure_blocks(group, state, ahead=ahead):
+                    stalled.add(state.request_id)
         inflight = []
-        for launch in (self._launch_prefill, self._launch_decode):
+        for phase in ("prefill", "decode"):
             for group in self.groups.values():
-                rec = launch(group)
+                if phase == "prefill":
+                    rec = self._launch_prefill(group)
+                elif group.spec_on:
+                    rec = self._launch_spec(group, stalled)
+                else:
+                    rec = self._launch_decode(group, stalled)
                 if rec is not None:
                     inflight.append(rec)
                     if not self.cfg.overlap:
                         self._fetch(rec)
         self._stamp_arrivals(time.perf_counter())
-        admitted = self._admit_all()
+        admitted = self._admit_all(allow_preempt=False)
         self._sample_util()
         for rec in inflight:
             # fetch+apply interleaved: an earlier record's host bookkeeping
             # runs while later records are still computing on the card
             self._fetch(rec)
             self._apply(rec)
-        admitted |= self._admit_all()
+        admitted |= self._admit_all(allow_preempt=self.cfg.preempt)
         self._peak_active = max(
             self._peak_active,
             sum(len(g.sched.active) for g in self.groups.values()))
@@ -646,8 +1032,9 @@ class ServeEngine:
             if self._stuck_ticks >= self._STUCK_TICKS:
                 raise RuntimeError(
                     f"serving livelock: {self._stuck_ticks} ticks with "
-                    "waiting work but no progress — the KV pool cannot host "
-                    "any runnable request")
+                    "waiting work but no progress — the KV pool and swap "
+                    "buffer together cannot host any runnable request "
+                    "(undersized swap_blocks?)")
         self.step += 1
         return any(g.sched.has_work for g in self.groups.values())
 
@@ -702,8 +1089,19 @@ class ServeEngine:
             kv_util_peak=self._util_peak,
             peak_active_requests=self._peak_active,
             prefix_hits=self.pool.prefix_hits,
+            preemptions=self._preemptions,
+            resumes=self._resumes,
             policy_groups=len(self.groups),
             events=self.events,
+            spec_steps=self._spec_steps,
+            spec_drafted=self._spec_drafted,
+            spec_accepted=self._spec_accepted,
+            spec_accept_rate=(self._spec_accepted / self._spec_drafted
+                              if self._spec_drafted else 0.0),
+            spec_tokens_per_step=(self._spec_emitted / self._spec_row_steps
+                                  if self._spec_row_steps else 0.0),
+            spec_disabled_groups=self._spec_disabled,
             group_steps={g.label: g.steps for g in self.groups.values()},
+            group_draft_steps={g.label: g.draft_steps
+                               for g in self.groups.values()},
         )
-

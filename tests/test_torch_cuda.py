@@ -280,6 +280,37 @@ def test_conv2d_im2col_on_the_kernel_matches_plain_version(cuda, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("stride,padding", [(1, "SAME"), (2, "VALID")])
+def test_f32_exact_conv_is_full_f32_under_default_tf32_flag(cuda, stride,
+                                                            padding):
+    """An f32 exact conv on the card is full f32, not TF32, whatever the
+    caller's ``torch.backends.cudnn.allow_tf32`` (PyTorch's default is
+    True, and it is set so here): within rtol 1e-5 (and 1e-5 of the
+    largest output) of the same conv on the CPU. A TF32 conv misses it by
+    ~30x (2.9e-4 of the largest output at this shape on the H100). The
+    caller's flag is left as it was."""
+    from repro_torch.core.config import Backend, DaismConfig
+    from repro_torch.core.gemm import conv2d_im2col
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((8, 32, 32, 64), generator=g)
+    w = torch.randn((3, 3, 64, 128), generator=g) * 0.05
+    exact = DaismConfig(variant=Variant.EXACT, backend=Backend.EXACT)
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = conv2d_im2col(x.to(cuda), w.to(cuda), exact, stride=stride,
+                            padding=padding)
+        assert torch.backends.cudnn.allow_tf32 is True
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    ref = conv2d_im2col(x, w, exact, stride=stride, padding=padding)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), ref, rtol=1e-5,
+                               atol=1e-5 * ref.abs().max().item())
+
+
+@pytest.mark.cuda
 def test_checkpoint_of_cuda_tensors_roundtrips_bit_for_bit(cuda, tmp_path):
     """bf16, f32 and an int32 step on the card: saved, restored onto the
     card (the device of ``like``), in fresh memory, bit for bit."""

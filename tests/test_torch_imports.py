@@ -132,3 +132,40 @@ def test_lenet_example_imports_without_jax():
     proc = _run(code)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout == ""
+
+
+# the port's examples beside the reference's, and a line each prints
+NEW_EXAMPLES = {"quickstart_torch.py": "grad ok",
+                "approx_lm_inference_torch.py": "per-site resolution",
+                "serve_continuous_batching_torch.py": "== group approx =="}
+
+
+@pytest.mark.parametrize("name", sorted(NEW_EXAMPLES))
+def test_new_example_runs_on_the_cpu_without_jax(name):
+    """Each example runs with --device cpu and imports neither jax nor
+    the JAX package."""
+    code = (
+        "import runpy, sys, torch\n"
+        "torch.set_num_threads(1)\n"
+        f"sys.argv = [{name!r}, '--device', 'cpu']\n"
+        f"runpy.run_path('examples/{name}', run_name='__main__')\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert NEW_EXAMPLES[name] in proc.stdout
+
+
+@pytest.mark.parametrize("name", sorted(NEW_EXAMPLES))
+def test_new_example_defaults_to_the_card(name):
+    """Without --device an example runs on the card; without one it
+    raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    code = ("import runpy, sys\n"
+            f"sys.argv = [{name!r}]\n"
+            f"runpy.run_path('examples/{name}', run_name='__main__')\n")
+    proc = _run(code)
+    assert proc.returncode != 0
+    assert "torch.cuda.is_available() is False" in proc.stderr

@@ -139,6 +139,37 @@ def test_integer_single_word_matches(variant, drop_lsb):
 
 
 @pytest.mark.parametrize("variant", [v.value for v in Variant])
+def test_shift_normalized_product_matches(variant):
+    """Paper Eq. (3) shift normalization, n = 8, every operand pair: the
+    int32 results equal the JAX package's, dtype included."""
+    a, b = np.meshgrid(np.arange(256, dtype=np.int32),
+                       np.arange(256, dtype=np.int32), indexing="ij")
+    ref = np.asarray(jmult.approx_mul_uint_normalized(
+        jnp.asarray(a), jnp.asarray(b), 8, JVariant(variant)))
+    got = multiplier.approx_mul_uint_normalized(
+        torch.from_numpy(a), torch.from_numpy(b), 8, Variant(variant)).numpy()
+    assert got.dtype == ref.dtype == np.int32
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("drop_lsb", [True, False])
+@pytest.mark.parametrize("variant", [v.value for v in Variant])
+def test_signmag_product_matches(variant, drop_lsb):
+    """Sign-magnitude signed products, every pair of 8-bit magnitudes with
+    both signs (-255 .. 255): equal to the JAX package's."""
+    vals = np.arange(-255, 256, dtype=np.int32)
+    a, b = np.meshgrid(vals, vals, indexing="ij")
+    ref = np.asarray(jmult.approx_mul_int_signmag(
+        jnp.asarray(a), jnp.asarray(b), 8, JVariant(variant),
+        integer_drop_lsb=drop_lsb))
+    got = multiplier.approx_mul_int_signmag(
+        torch.from_numpy(a), torch.from_numpy(b), 8, Variant(variant),
+        integer_drop_lsb=drop_lsb).numpy()
+    assert got.dtype == ref.dtype == np.int32
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("variant", [v.value for v in Variant])
 def test_dual_plane_matches(variant):
     """n = 24 (f32 mantissas) in both integer and float mode."""
     rng = np.random.default_rng(4)

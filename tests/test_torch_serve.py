@@ -99,8 +99,6 @@ def test_engine_config_errors_match(kw):
 
 
 @pytest.mark.parametrize("kw,field", [
-    (dict(preempt=True), "preempt"),
-    (dict(spec_k=2, spec_draft="*=pc3_tr"), "spec_k"),
     (dict(shards=2), "shards"),
 ])
 def test_unported_engine_features_raise(served, kw, field):
