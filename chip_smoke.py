@@ -5,7 +5,8 @@
 
 Builds the CUDA kernels from the sources in ``src/repro_torch/csrc``, holds
 each against its plain PyTorch version on the card, drives the port's main
-paths at TinyLlama-1.1B's published width (random bf16 weights from a seed):
+paths at TinyLlama-1.1B's published width (random bf16 weights from a seed)
+and then the rest of the decoder-only zoo (phase 12):
 the paged server through two policy tiers, the full-sequence
 ``prefill_step`` with and without the flash-attention kernel, the
 ``train_step`` with straight-through and approximate backward, slot-cache
@@ -111,6 +112,39 @@ and prints the kernels' times beside their bounds. Phases:
               the top-2 gap exceeds the deviation), 3 straight-through and
               1 approximate-backward train steps with finite loss and the
               launches the sites imply; ms per forward and per step.
+11. serve+  — the engine with preemption against reservation (tokens
+              equal), speculation against plain decode (tokens by the
+              top-2-gap rule), both together, and the energy report.
+12. zoo     — the decoder-only zoo at published widths, random bf16
+              weights, the card freed between models, peak memory
+              printed: (a) Qwen3-MoE (2 of 94 layers) served by the paged
+              engine (4 requests of ~32 prompt tokens, 16 generated each;
+              decode tok/s, TTFT and step p50), every emitted token equal
+              to a slot-cache decode_step replay wherever that replay's
+              top-2 gap exceeds the paged-vs-slot deviation, and the
+              router's rows against an M = 2048 call (the library GEMM's
+              and router_logits', which must not move); (b) DBRX (2 of 40)
+              forward, S = 256; (c) the expert GEMM at Qwen3-MoE's and
+              DBRX's shapes, C = 4 and 128, w_in and w_out: one launch for
+              all experts bit for bit against per-expert launches, experts
+              0 and E-1 against daism_matmul_ordered and within gemm_rtol
+              of the plain version, timed against the operations bound;
+              (d) Gemma-2B (18 layers, D = 256, MQA, tied embeddings)
+              forward at S = 512 under phase 5's policies, held against
+              each other as there, and a short paged serve, with what one
+              copy of the tied lm_head's transpose would cost a step; (e)
+              StarCoder2-15B (40 layers) and Nemotron-4-340B (2 of 96)
+              forwards, S = 128, attention on the PC3_TR flash kernel
+              (D = 128 and 192); (f) Llama-3.2-Vision (5 of 40 layers, one
+              cross block, 1601 image tokens) forward at S = 256 and 8
+              decode_steps with the image embeddings against it (phase
+              8's rule); (g) flash at D = 192 and 256: all seven variants,
+              causal and not, ragged, within the phase-3 bounds, the
+              controls breaking them at both dims, and timings at Gemma's
+              and Nemotron's heads (S = 2048) beside the bound and SDPA,
+              with the large-D kernels' ptxas registers and spills.
+              Every model's GEMM launches equal its sites, flash's its
+              layers.
 
 Every check raises on failure and nothing is caught (checks 3c, 6 and 9
 expect their errors), so any failure exits non-zero before the final line. TF32 is
@@ -294,6 +328,36 @@ C1_RTOL = 1e-5
 PREEMPT_ENGINE = dict(num_slots=4, block_size=16, max_seq=64,
                       prefill_chunk=32, num_blocks=6)
 PREEMPT_LENS, PREEMPT_TOTAL = (14, 13, 15, 12), 40
+# phase 12: the decoder-only zoo at published widths, random bf16 weights.
+# (a) Qwen3-MoE at 2 of 94 layers in the paged engine: 4 requests of
+# ~32 prompt tokens and 16 generated, 4 slots, prefill chunks of 32
+ZOO_ENGINE = dict(num_slots=4, block_size=16, prefill_chunk=32, max_seq=64)
+ZOO_PROMPTS, ZOO_GEN = (32, 30, 28, 31), 16
+ZOO_ROUTER_M = (1, 4, 32, 128, 512)  # router rows vs an M = 2048 call
+# (c) the expert GEMM at the MoE FFNs' shapes: (label, E, K, N, x shared
+# by every expert); w_in's (w_gate's) and w_out's, at C = 4 (decode) and
+# 128 (a prefill chunk of 4 x 32 tokens) tokens an expert
+ZOO_EXPERT_GEMMS = (("qwen3 w_in", 128, 4096, 1536, True),
+                    ("qwen3 w_out", 128, 1536, 4096, False),
+                    ("dbrx w_in", 16, 6144, 10752, True),
+                    ("dbrx w_out", 16, 10752, 6144, False))
+ZOO_EXPERT_C = (4, 128)
+# (d) Gemma-2B's forward, (e) StarCoder2-15B's and Nemotron-4-340B's;
+# Gemma's serve with the tied lm_head's transpose kept and copied at
+# every call, in alternating pairs
+ZOO_GEMMA_SEQ, ZOO_DENSE_SEQ = 512, 128
+ZOO_LM_HEAD_PAIRS = 3
+# (f) Llama-3.2-Vision: 5 of 40 layers hold one cross block
+ZOO_VLM_LAYERS, ZOO_VLM_BATCH, ZOO_VLM_SEQ, ZOO_VLM_STEPS = 5, 2, 256, 8
+# (g) flash at the zoo's head dims (B, Sq, Skv, H, KH, D) against the plain
+# version, each causal (Sq == Skv) and not; the controls at a D = 192 case
+ZOO_FLASH_CHECKS = [(1, 256, 256, 8, 1, 256), (2, 100, 300, 4, 2, 256),
+                    (1, 256, 256, 8, 2, 192), (1, 300, 300, 4, 1, 192)]
+ZOO_FLASH_CONTROL = (1, 256, 256, 8, 2, 192)
+# timed at S = 2048 causal: (arch, shape, query heads held against the
+# plain version, which is too slow for all of Nemotron's 96)
+ZOO_FLASH_TIMED = (("gemma_2b", (1, 2048, 2048, 8, 1, 256), 8),
+                   ("nemotron_4_340b", (1, 2048, 2048, 96, 8, 192), 12))
 
 
 def gemm_rtol(k: int) -> float:
@@ -796,6 +860,11 @@ def approx_launches_per_step(model) -> int:
         per_layer = sum(on_kernel(p, k) for p, k in decoder_block_sites(cfg, lo)
                         if k is not OpKind.ATTN_QK)
         n += (hi - lo) * per_layer
+    for g in range(getattr(model, "n_cross", 0)):  # a VLM's cross blocks
+        n += sum(on_kernel(f"decoder/cross_{g}/{scope}/{w}", OpKind.DENSE)
+                 for scope, names in (("xattn", ("wq", "wk", "wv", "wo")),
+                                      ("ffn", ("wi", "wg", "wo")))
+                 for w in names)
     return n + on_kernel("decoder/lm_head", OpKind.LM_HEAD)
 
 
@@ -2079,9 +2148,550 @@ def serve_more(device, cfg):
     return records, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the decoder-only zoo at published widths
+# ---------------------------------------------------------------------------
+
+def _zoo_model(device, arch, layers, policy):
+    """(model, params) of ``arch`` at its published width, ``layers`` deep
+    (None: all), random bf16 weights from seed 0, drawn on the card."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.module import flatten
+    from repro_torch.models.registry import build_model
+
+    cfg = get_config(arch)
+    full = cfg.n_layers
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    cfg = cfg.with_policy(policy)
+    torch.zeros((), device=device)  # the allocator keeps no stats before
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=device)
+    with torch.inference_mode():
+        params = model.init(seed=0)
+    _sync(device)
+    n = sum(t.numel() for t in flatten(params).values())
+    log(f"  {arch}: {cfg.n_layers} of {full} layers, d_model {cfg.d_model}, "
+        f"heads {cfg.n_heads}/{cfg.kv_heads} x {cfg.head_dim}, "
+        + (f"{cfg.n_experts} experts top-{cfg.topk} x {cfg.expert_ff}, "
+           if cfg.n_experts else f"d_ff {cfg.d_ff}, ")
+        + f"vocab {cfg.vocab}: {n / 1e9:.3f}e9 params drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return model, params
+
+
+def _peak_gib(device) -> float:
+    import torch
+
+    return torch.cuda.max_memory_allocated(device) / 2**30
+
+
+def _checked_forward(model, params, batch, label, device, flash=0):
+    """One forward through ``prefill_step``'s path (no grad): finite logits
+    of the expected shape, the GEMM kernel launched once a site and flash
+    ``flash`` times. Returns (logits, aux, seconds, GEMM launches)."""
+    import torch
+
+    from repro_torch.kernels import daism_matmul as dm
+    from repro_torch.kernels import flash_attention as fa
+
+    b, s = batch["tokens"].shape
+    dm.launches = fa.launches = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, aux = model.forward(params, batch)
+    _sync(device)
+    sec = time.perf_counter() - t0
+    gemm_n, flash_n = dm.launches, fa.launches
+    want = approx_launches_per_step(model)
+    if (gemm_n, flash_n) != (want, flash):
+        raise SystemExit(f"{label}: daism_matmul launched {gemm_n} (sites "
+                         f"imply {want}), flash {flash_n} (expected {flash})")
+    if logits.shape != (b, s, model.cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()) or \
+            not bool(torch.isfinite(aux)):
+        raise SystemExit(f"{label}: logits not finite or shaped "
+                         f"{tuple(logits.shape)}")
+    return logits, aux, sec, gemm_n
+
+
+def slot_logits(model, params, prompt, feed, max_seq, device):
+    """One request through a fresh B = 1 slot cache: ``prefill`` of its
+    prompt, then one ``decode_step`` per token of ``feed``. Returns (1 +
+    len(feed), V) f32 logits, row j predicting the token after feed[j - 1]
+    (row 0: after the prompt)."""
+    import torch
+
+    with torch.inference_mode():
+        cache = model.init_cache(1, max_seq)
+        logits, cache = model.prefill(
+            params, torch.tensor([prompt], device=device), cache)
+        rows = [logits[0, -1].float()]
+        for tok in feed:
+            logits, cache = model.decode_step(
+                params, torch.tensor([[tok]], device=device), cache)
+            rows.append(logits[0, 0].float())
+    return torch.stack(rows)
+
+
+def router_rows(device, w):
+    """The MoE router's rows at M = 1 to 2048 against the same rows inside
+    an M = 2048 call: the library f32 GEMM (``x @ w``) and the port's
+    ``router_logits`` (one GEMM shape whatever M). Returns {M: (elements of
+    rows 0..M-1 that differ from the M = 2048 call, max |diff|)} for each."""
+    import torch
+
+    from repro_torch.models.moe import router_logits
+
+    gen = torch.Generator(device=device).manual_seed(13)
+    x = torch.randn((2048, w.shape[0]), generator=gen, device=device).to(
+        torch.bfloat16)
+    found = {}
+    for label, fn in (("x @ w", lambda t: t.float() @ w),
+                      ("router_logits", lambda t: router_logits(t, w))):
+        big = fn(x)
+        for m in ZOO_ROUTER_M:
+            d = (fn(x[:m]) - big[:m]).abs()
+            found[(label, m)] = (int((d != 0).sum()), d.max().item())
+    return found
+
+
+def zoo_moe_serve(device):
+    """(a): Qwen3-MoE at 2 layers through the paged engine; tokens against
+    a slot-cache decode_step replay; the router's M-invariance."""
+    import torch
+
+    from repro_torch.serve import EngineConfig, Request
+
+    model, params = _zoo_model(device, "qwen3_moe_235b", 2, GEN_POLICY)
+    cfg = model.cfg
+    rng = __import__("numpy").random.default_rng(12)
+    prompts = [rng.integers(0, cfg.vocab, size=n).tolist()
+               for n in ZOO_PROMPTS]
+    ecfg = EngineConfig(**ZOO_ENGINE)
+    engine, rep, launches = engine_run(
+        model, params, ecfg,
+        [Request(prompt=p, max_new_tokens=ZOO_GEN) for p in prompts], device)
+    log(f"  (a) served {len(rep.completed)} requests (prompts {ZOO_PROMPTS}, "
+        f"{ZOO_GEN} tokens each) in {rep.wall_s:.2f} s: "
+        f"{rep.tokens_per_s:.1f} decode tok/s, TTFT p50 "
+        f"{rep.ttft_p50_ms:.1f} ms, step p50 {rep.step_p50_ms:.2f} ms; "
+        f"daism_matmul launches {launches} as the steps imply "
+        f"({approx_launches_per_step(model)} a step: 3 expert GEMMs a layer, "
+        f"one launch each for all {cfg.n_experts} experts)")
+    # the engine's tokens against a slot-cache decode_step run of each
+    # request, wherever that run's top-2 gap exceeds the measured deviation
+    # of the paged path (alone in row 0 at the engine's shapes) from it
+    dev, slots = 0.0, []
+    for st in rep.completed:
+        feed = st.output[:-1]
+        paged, _, _, _ = replay_logits(model, params, ecfg, st.request.prompt,
+                                       feed, device, cached_len=st.cached_len)
+        slot = slot_logits(model, params, st.request.prompt, feed,
+                           ecfg.max_seq, device)
+        dev = max(dev, (paged - slot).abs().max().item())
+        slots.append(slot)
+    equal = total = clear = 0
+    for st, slot in zip(rep.completed, slots):
+        top2 = slot.topk(2, dim=-1).values
+        gap = top2[:, 0] - top2[:, 1]
+        want = slot.argmax(-1).tolist()
+        for tok, ref, g in zip(st.output, want, gap.tolist()):
+            total += 1
+            equal += tok == ref
+            if g > dev:
+                clear += 1
+                if tok != ref:
+                    raise SystemExit(
+                        f"(a): request {st.request_id} emits {tok} where the "
+                        f"slot-cache run's greedy token {ref} leads by "
+                        f"{g:.4g} > the paged-vs-slot deviation {dev:.4g}")
+    log(f"  (a) engine vs slot-cache decode_step: paged-vs-slot max |logit "
+        f"diff| {dev:.4g}; tokens equal {equal} of {total}, all {clear} whose "
+        f"top-2 gap exceeds the deviation")
+    found = router_rows(device, params["blocks"]["ffn"]["router"][0])
+    for label in ("x @ w", "router_logits"):
+        log(f"  (a) router rows vs an M = 2048 call, {label}: " + ", ".join(
+            f"M={m}: {found[(label, m)][0]} differ (max "
+            f"{found[(label, m)][1]:.3g})" for m in ZOO_ROUTER_M))
+    if any(found[("router_logits", m)][0] for m in ZOO_ROUTER_M):
+        raise SystemExit("(a): router_logits rows depend on M")
+    peak = _peak_gib(device)
+    log(f"  (a) peak device memory {peak:.2f} GiB")
+    rec = dict(tok_s=rep.tokens_per_s, ttft_p50_ms=rep.ttft_p50_ms,
+               step_p50_ms=rep.step_p50_ms, dev=dev, equal=equal,
+               total=total, router=found, peak_gib=peak)
+    del engine, params, model, slots
+    _free(device)
+    return rec, launches
+
+
+def zoo_experts(device):
+    """(c): the expert GEMM at Qwen3-MoE's and DBRX's shapes: one launch
+    for all experts, bit for bit against E 2-D launches and (first and
+    last expert) against daism_matmul_ordered, within gemm_rtol(K) of the
+    plain version on those two, timed against its bound."""
+    import torch
+
+    from repro_torch.core.config import Variant
+    from repro_torch.kernels import daism_matmul as dm
+
+    var = Variant.PC3_TR
+    gen = torch.Generator(device=device).manual_seed(14)
+    rows = []
+    for label, e, k, n, shared in ZOO_EXPERT_GEMMS:
+        w = torch.randn((e, k, n), generator=gen, device=device).to(
+            torch.bfloat16)
+        for c in ZOO_EXPERT_C:
+            if shared:  # the dense MoE's broadcast tokens: expert stride 0
+                x = torch.randn((c, k), generator=gen, device=device).to(
+                    torch.bfloat16)[None].expand(e, c, k)
+            else:
+                x = torch.randn((e, c, k), generator=gen, device=device).to(
+                    torch.bfloat16)
+            ms, got = cuda_time_ms(
+                lambda: dm.daism_matmul_experts_kernel(x, w, var), 3)
+            per = torch.stack([dm.daism_matmul_kernel(x[i].contiguous(), w[i],
+                                                      var) for i in range(e)])
+            torch.cuda.synchronize()
+            if not torch.equal(got.view(torch.int32), per.view(torch.int32)):
+                raise SystemExit(f"(c) {label} C={c}: the expert launch "
+                                 "differs from per-expert 2-D launches")
+            plain_ms = []
+            for i in (0, e - 1):
+                a = x[i].contiguous()
+                ordered = dm.daism_matmul_ordered(a, w[i], var)
+                t, ref = cuda_time_ms(lambda: dm.daism_matmul_plain(
+                    a, w[i], var), 1, warmup=0)
+                plain_ms.append(t)
+                if not torch.equal(got[i].view(torch.int32),
+                                   ordered.view(torch.int32)):
+                    raise SystemExit(f"(c) {label} C={c}: expert {i} differs "
+                                     "from daism_matmul_ordered")
+                gemm_held(got[i], ref, a, w[i], f"(c) {label} C={c} e={i}")
+            nbytes = (2 * (c * k if shared else e * c * k) + 2 * e * k * n
+                      + 4 * e * c * n)
+            ops = OPS_PER_MAC["pc3_tr"] * e * c * k * n
+            b_ms = max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3
+            b_by = ("operations" if ops / INT32_OPS_PER_S
+                    >= nbytes / HBM_BYTES_PER_S else "bytes")
+            plan = dm._plan(c, k, n, var, experts=e)
+            path = "tile" if plan is None else f"splitk {plan}"
+            rows.append(dict(label=label, e=e, c=c, k=k, n=n, ms=ms,
+                             plain_ms_per_expert=sum(plain_ms) / 2,
+                             bound_ms=b_ms, bound_by=b_by, path=path))
+            log(f"  (c) {label:12s} (E={e}, C={c}, {k}, {n}) pc3_tr, {path}: "
+                f"kernel {ms:9.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                f"{b_ms / ms * 100:5.1f}% of bound; all {e} experts equal "
+                f"their 2-D launches bit for bit, experts 0 and {e - 1} equal "
+                f"daism_matmul_ordered and the plain version "
+                f"({sum(plain_ms) / 2:.1f} ms an expert) within gemm_rtol")
+            del x, got, per
+        del w
+    _free(device)
+    return rows
+
+
+def zoo_dense(device):
+    """(b) DBRX's forward, (d) Gemma-2B: forward under phase 5's policies,
+    the tied lm_head's transpose, a short paged serve; (e) StarCoder2-15B
+    and Nemotron-4-340B forwards; (f) Llama-3.2-Vision: forward and
+    decode_steps with image embeddings against it. Returns (records, GEMM
+    launches, flash launches)."""
+    import torch
+
+    from repro_torch.data import lm_batches
+    from repro_torch.launch.steps import build_artifacts
+    from repro_torch.serve import EngineConfig, Request
+
+    recs, gemm_n, flash_n = {}, 0, 0
+
+    def tokens(vocab, s, b=1, seed=0):
+        return torch.from_numpy(next(lm_batches(vocab, b, s, seed=seed))[
+            "tokens"]).to(device).long()
+
+    # (b) DBRX at 2 of 40 layers: one forward, B = 1, S = 256
+    model, params = _zoo_model(device, "dbrx_132b", 2, GEN_POLICY)
+    _, aux, sec, n = _checked_forward(
+        model, params, {"tokens": tokens(model.cfg.vocab, 256)}, "(b) dbrx",
+        device)
+    gemm_n += n
+    recs["dbrx"] = dict(ms=sec * 1e3, aux=aux.item(), peak_gib=_peak_gib(device))
+    log(f"  (b) dbrx_132b forward B=1 S=256 pc3_tr: {sec * 1e3:.1f} ms, aux "
+        f"{aux.item():.4f}, {n} launches as the sites imply, peak "
+        f"{recs['dbrx']['peak_gib']:.2f} GiB")
+    del model, params
+    _free(device)
+
+    # (d) Gemma-2B, all 18 layers (head dim 256, MQA, tied embeddings)
+    model, params = _zoo_model(device, "gemma_2b", None, GEN_POLICY)
+    cfg = model.cfg
+    batch = {"tokens": tokens(cfg.vocab, ZOO_GEMMA_SEQ)}
+    logits, res = {}, {}
+    for label, spec in PREFILL_POLICIES:
+        art = build_artifacts(cfg.with_policy(spec), device=device)
+        out, _, sec, n = _checked_forward(
+            art.model, params, batch, f"(d) gemma {label}", device,
+            flash=cfg.n_layers if ":flash" in spec else 0)
+        gemm_n += n
+        flash_n += cfg.n_layers if ":flash" in spec else 0
+        logits[label] = out
+        res[label] = sec * 1e3
+        log(f"  (d) gemma_2b {label:27s} B=1 S={ZOO_GEMMA_SEQ}: "
+            f"{sec * 1e3:9.1f} ms")
+    for (a, b), lim in ((("flash exact, exact GEMMs",
+                          "jnp attention, exact GEMMs"), PREFILL_EXACT_REL),
+                        (("flash exact", "jnp attention"), PREFILL_APPROX_REL)):
+        rel, agree, clear_ok, n_clear = _logit_agreement(logits[a], logits[b])
+        res[f"{a} vs {b}"] = rel
+        log(f"  (d) {a!r} vs {b!r}: max |diff| / max |ref| {rel:.4g} (bound "
+            f"{lim:g}); greedy tokens agree on {agree * 100:.2f}% of rows, on "
+            f"all {n_clear} rows whose top-2 gap exceeds the deviation: "
+            f"{clear_ok}")
+        if rel > lim or not clear_ok:
+            raise SystemExit(f"(d): {a!r} and {b!r} disagree beyond the bound")
+    del logits
+    # the tied lm_head: unembed keeps embedding.T (layers.tied_lm_head).
+    # What a copy costs, and the serve with it kept against a copy at every
+    # call (the unembed before it), alternating; the tokens must not move
+    from repro_torch.models import layers
+
+    emb = params["embedding"]
+    t_ms, _ = cuda_time_ms(lambda: emb.t().contiguous(), 5)
+    ecfg = EngineConfig(**ZOO_ENGINE)
+    rng = __import__("numpy").random.default_rng(15)
+    prompts = [rng.integers(0, cfg.vocab, size=16).tolist() for _ in range(4)]
+    kept = layers.tied_lm_head
+    step_ms, outs = {"kept": [], "per call": []}, {}
+    for label in ("kept", "per call") * ZOO_LM_HEAD_PAIRS:
+        layers.tied_lm_head = kept if label == "kept" else (
+            lambda e: e.t().contiguous())
+        try:
+            engine, rep, n = engine_run(
+                model, params, ecfg, [Request(prompt=p, max_new_tokens=16)
+                                      for p in prompts], device)
+        finally:
+            layers.tied_lm_head = kept
+        gemm_n += n
+        step_ms[label].append(rep.step_p50_ms)
+        outs.setdefault(label, [st.output for st in rep.completed])
+        del engine
+    if outs["kept"] != outs["per call"]:
+        raise SystemExit("(d): the kept lm_head transpose changed the tokens")
+    res.update(transpose_ms=t_ms, serve_tok_s=rep.tokens_per_s,
+               step_ms=step_ms, peak_gib=_peak_gib(device))
+    log(f"  (d) gemma_2b serve: 4 requests x 16 tokens, {n} launches as "
+        f"implied a run; a copy of the tied lm_head's transpose "
+        f"({tuple(emb.shape)} bf16) takes {t_ms:.3f} ms; decode step p50 "
+        f"with embedding.T kept " + " / ".join(
+            f"{x:.2f}" for x in step_ms["kept"]) + " ms, copied at every "
+        "call " + " / ".join(f"{x:.2f}" for x in step_ms["per call"])
+        + f" ms (alternating runs), tokens equal; peak "
+        f"{res['peak_gib']:.2f} GiB")
+    recs["gemma"] = res
+    del model, params, emb
+    _free(device)
+
+    # (e) StarCoder2-15B at all 40 layers, Nemotron-4-340B at 2 of 96,
+    # attention on the PC3_TR flash kernel (D = 128 and 192)
+    label, spec = PREFILL_POLICIES[0]
+    for arch, layers in (("starcoder2_15b", None), ("nemotron_4_340b", 2)):
+        model, params = _zoo_model(device, arch, layers, spec)
+        _, _, sec, n = _checked_forward(
+            model, params, {"tokens": tokens(model.cfg.vocab, ZOO_DENSE_SEQ)},
+            f"(e) {arch}", device, flash=model.cfg.n_layers)
+        gemm_n += n
+        flash_n += model.cfg.n_layers
+        recs[arch] = dict(ms=sec * 1e3, peak_gib=_peak_gib(device))
+        log(f"  (e) {arch} forward B=1 S={ZOO_DENSE_SEQ} {label}: "
+            f"{sec * 1e3:.1f} ms, {n} GEMM and {model.cfg.n_layers} flash "
+            f"launches as implied, peak {recs[arch]['peak_gib']:.2f} GiB")
+        del model, params
+        _free(device)
+
+    # (f) Llama-3.2-Vision at 5 of 40 layers (one cross block)
+    model, params = _zoo_model(device, "llama_3_2_vision_11b",
+                               ZOO_VLM_LAYERS, GEN_POLICY)
+    cfg = model.cfg
+    art = build_artifacts(cfg, device=device)
+    gen = torch.Generator(device=device).manual_seed(16)
+    img = torch.randn((ZOO_VLM_BATCH, cfg.n_image_tokens, cfg.d_model),
+                      generator=gen, device=device).to(torch.bfloat16)
+    seq = tokens(cfg.vocab, ZOO_VLM_SEQ, b=ZOO_VLM_BATCH, seed=1)
+    full, _, sec, n = _checked_forward(
+        model, params, {"tokens": seq, "image_embeds": img}, "(f) vlm", device)
+    gemm_n += n
+    from repro_torch.kernels import daism_matmul as dm
+    dm.launches = 0
+    lo = ZOO_VLM_SEQ - ZOO_VLM_STEPS
+    cache = art.init_cache(ZOO_VLM_BATCH, ZOO_VLM_SEQ)
+    with torch.no_grad():
+        _, cache = art.model.prefill(params, seq[:, :lo], cache,
+                                     image_embeds=img)
+    outs, step_ms = [], []
+    for j in range(ZOO_VLM_STEPS):
+        t0 = time.perf_counter()
+        lg, cache = art.decode_step(params, seq[:, lo + j:lo + j + 1], cache,
+                                    img)
+        _sync(device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(lg[:, 0])
+    n = dm.launches
+    gemm_n += n
+    want = approx_launches_per_step(model) * (1 + ZOO_VLM_STEPS)
+    if n != want:
+        raise SystemExit(f"(f): daism_matmul launched {n}; prefill + "
+                         f"{ZOO_VLM_STEPS} decode steps imply {want}")
+    got = torch.stack(outs, 1)
+    if not bool(torch.isfinite(got).all()):
+        raise SystemExit("(f): decode logits not finite")
+    rel, agree, clear_ok, n_clear = _logit_agreement(got, full[:, lo:])
+    recs["vlm"] = dict(ms=sec * 1e3, rel=rel, agree=agree,
+                       step_ms_p50=sorted(step_ms)[len(step_ms) // 2],
+                       peak_gib=_peak_gib(device))
+    log(f"  (f) llama_3_2_vision_11b ({cfg.n_layers} layers, "
+        f"{model.n_cross} cross block, {cfg.n_image_tokens} image tokens) "
+        f"forward B={ZOO_VLM_BATCH} S={ZOO_VLM_SEQ}: {sec * 1e3:.1f} ms; "
+        f"prefill + {ZOO_VLM_STEPS} decode_steps with image_embeds: "
+        f"{n} launches as implied, step p50 {recs['vlm']['step_ms_p50']:.2f}"
+        f" ms; decode vs forward max |diff| / max |ref| {rel:.4g} (bound "
+        f"{PREFILL_APPROX_REL:g}); greedy tokens agree on "
+        f"{agree * 100:.2f}% of rows, on all {n_clear} rows whose top-2 gap "
+        f"exceeds the deviation: {clear_ok}; peak "
+        f"{recs['vlm']['peak_gib']:.2f} GiB")
+    if rel > PREFILL_APPROX_REL or not clear_ok:
+        raise SystemExit("(f): decode and forward disagree beyond the bound")
+    del model, params, art, cache, full, got, img
+    _free(device)
+    return recs, gemm_n, flash_n
+
+
+def zoo_flash(device, ptxas):
+    """(g): flash at head dims 192 and 256 against the plain version (all
+    seven variants, causal and not, ragged), the controls at both dims,
+    timings at Gemma-2B's and Nemotron-4's heads; the large-D kernels'
+    ptxas registers and spills."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.config import Variant
+    from repro_torch.kernels import flash_attention as fa
+
+    marks = {"flash_fwd NC=12": "EtLi12EE", "flash_fwd NC=16": "EtLi16EE",
+             "flash_fwd f32 NC=12": "EfLi12EE",
+             "flash_fwd f32 NC=16": "EfLi16EE",
+             "flash_fwd_tc KD=12": "flash_fwd_tcILi12EE",
+             "flash_fwd_tc KD=16": "flash_fwd_tcILi16EE"}
+    spills = ptxas_summary(ptxas, marks)
+    log("  (g) ptxas, largest over variants: " + "; ".join(
+        f"{k} {r} registers, {sp} bytes spilled"
+        for k, (r, sp) in spills.items()))
+    gen = torch.Generator(device=device).manual_seed(17)
+    variants = [None] + [v for v in Variant if v is not Variant.EXACT]
+    errs = {"exact": 0.0, "exact_over_1ulp": -1.0, "approx": 0.0,
+            "approx_over_2ulp": -1.0, "oracle": 0.0}
+    n, ctrl = 0, {}
+    for shape in ZOO_FLASH_CHECKS:
+        q, k, v = _bhsd_inputs(gen, device, *shape)
+        for causal in (True, False):
+            if causal and shape[1] != shape[2]:
+                continue
+            for var in variants:
+                got = fa.flash_attention_bhsd_kernel(q, k, v, causal=causal,
+                                                     variant=var)
+                ref = fa.flash_attention_bhsd_plain(q, k, v, causal=causal,
+                                                    variant=var)
+                torch.cuda.synchronize()
+                _flash_held(got, ref, var, f"{shape} causal={causal} "
+                            f"{var or 'exact'}", errs, v=v)
+                n += 1
+                if shape == ZOO_FLASH_CONTROL and causal:
+                    ctrl[var.value if var else "exact"] = (got, ref)
+    _flash_controls({name: ctrl[name][0] for name in ("exact", "fla")},
+                    ctrl["pc3_tr"][1], f"{ZOO_FLASH_CONTROL}")
+    del ctrl
+    log(f"  (g) {n} cases at D = 192 / 256 within the bounds; max |kernel - "
+        f"plain| exact {errs['exact']:.4g} (largest excess over one bf16 "
+        f"rounding {errs['exact_over_1ulp']:.4g}), approximate "
+        f"{errs['approx']:.4g} (largest excess over 2**-6 |plain| "
+        f"{errs['approx_over_2ulp']:.4g})")
+    rows = []
+    for arch, shape, heads in ZOO_FLASH_TIMED:
+        b, s, _, h, kh, d = shape
+        q, k, v = _bhsd_inputs(gen, device, *shape)
+        # the plain version on the first `heads` query heads (their kv heads)
+        kv_heads = heads // (h // kh)
+        qp, kp, vp = q[:, :, :heads], k[:, :, :kv_heads], v[:, :, :kv_heads]
+        qs, ks, vs = (t.repeat_interleave(h // t.shape[2], dim=2).transpose(
+            1, 2) for t in (q, k, v))
+        outs, plains = {}, {}
+        for name, var in (("exact", None), ("pc3_tr", Variant.PC3_TR),
+                          ("fla", Variant.FLA)):
+            ms, outs[name] = cuda_time_ms(lambda: fa.flash_attention_bhsd_kernel(
+                q, k, v, variant=var), 3)
+            if name == "fla":
+                continue
+            plain_ms, plains[name] = cuda_time_ms(
+                lambda: fa.flash_attention_bhsd_plain(qp, kp, vp, variant=var),
+                1, warmup=0)
+            _flash_held(outs[name][:, :, :heads], plains[name], var,
+                        f"{arch} {shape} {name}", errs, v=vp)
+            lib_ms = None
+            if var is None:
+                lib_ms, _ = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                    qs, ks, vs, is_causal=True), 5)
+            b_ms, b_by, ops = flash_bound(name, b, s, h, kh, d)
+            rows.append(dict(arch=arch, variant=name, shape=list(shape),
+                             ms=ms, plain_ms=plain_ms, plain_heads=heads,
+                             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+            lib = f"{lib_ms:.4f}" if lib_ms is not None else "-"
+            log(f"  (g) flash {name:6s} {arch} B={b} S={s} H={h} KH={kh} "
+                f"D={d} causal: kernel {ms:9.4f} ms, plain {plain_ms:9.1f} ms "
+                f"({heads} of {h} heads), SDPA {lib} ms, bound {b_ms:.4f} ms "
+                f"({b_by}), {b_ms / ms * 100:5.1f}% of bound")
+        if arch == "gemma_2b":
+            _flash_controls({"exact": outs["exact"], "fla": outs["fla"]},
+                            plains["pc3_tr"], f"{arch} {shape}")
+        del q, k, v, qs, ks, vs, outs, plains
+    _free(device)
+    return rows, max(errs["exact"], errs["approx"])
+
+
+def _flash_controls(outs, pc3_plain, what):
+    """The exact and FLA kernels' outputs against the PC3_TR plain output
+    must break the approximate bound (phase 7's controls)."""
+    from repro_torch.core.config import Variant
+
+    for other, got in outs.items():
+        err, excess, bnd = flash_excess(got, pc3_plain, Variant.PC3_TR)
+        log(f"  (g) control at {what}: {other} kernel vs pc3_tr plain: max "
+            f"|diff| {err:.4g}, exceeds {bnd} by {excess:.4g}")
+        if excess <= 0:
+            raise SystemExit(f"flash control at {what}: the {other} kernel "
+                             "passes the approximate bound against the pc3_tr "
+                             "plain version")
+
+
+def zoo(device, ptxas):
+    """Phase 12; returns (records, GEMM launches, flash launches)."""
+    recs = {}
+    log("  (a) qwen3_moe_235b: the paged engine")
+    recs["moe"], gemm_n = zoo_moe_serve(device)
+    recs["dense"], n, flash_n = zoo_dense(device)
+    gemm_n += n
+    recs["experts"] = zoo_experts(device)
+    recs["flash"], recs["flash_err"] = zoo_flash(device, ptxas)
+    return recs, gemm_n, flash_n
+
+
 def build_all():
-    """nvcc of every kernel source, all started together; returns
-    {name: (path, seconds)}."""
+    """nvcc of every kernel source, all started together; prints the
+    -Xptxas -v lines and returns ({name: (path, seconds)}, those lines)."""
+    import contextlib
+    import io
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels.build import compile_library
@@ -2091,8 +2701,37 @@ def build_all():
         path = compile_library(name, verbose=True)
         return name, (path, time.perf_counter() - t0)
 
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        return dict(pool.map(one, KERNELS))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), ThreadPoolExecutor(
+            len(KERNELS)) as pool:
+        built = dict(pool.map(one, KERNELS))
+    print(buf.getvalue(), end="", flush=True)
+    return built, buf.getvalue()
+
+
+def ptxas_summary(text: str, marks):
+    """{label: (registers, spill store bytes)} over the ptxas entries whose
+    mangled name holds ``marks[label]`` (the largest over the variants)."""
+    import re
+
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = next((label for label, mk in marks.items()
+                         if mk in m.group(1)), None)
+            continue
+        if name is None:
+            continue
+        regs, spill = out.get(name, (0, 0))
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = max(spill, int(m.group(1)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            regs = max(regs, int(m.group(1)))
+        out[name] = (regs, spill)
+    return out
 
 
 def sass_counts(lib: Path, kernel: str):
@@ -2156,7 +2795,7 @@ def main(argv=None) -> int:
 
     log("== 2. build ==")
     t0 = time.perf_counter()
-    built = build_all()
+    built, ptxas = build_all()
     for lib, (path, sec) in built.items():
         log(f"  built {path.relative_to(ROOT)} in {sec:.1f} s")
     log(f"  build wall {time.perf_counter() - t0:.1f} s")
@@ -2211,6 +2850,9 @@ def main(argv=None) -> int:
     log("== 11. serve: preemption, speculation, energy ==")
     more, more_gemm = serve_more(device, cfg)
 
+    log("== 12. the decoder-only zoo at published widths ==")
+    zrec, zoo_gemm, zoo_flash_n = zoo(device, ptxas)
+
     log("== summary ==")
     log("  serve: " + report.summary().replace("\n", "\n  serve: "))
     for label, r in pre.items():
@@ -2248,6 +2890,18 @@ def main(argv=None) -> int:
         f"(d) estimated multiply energy saved: "
         + ", ".join(f"{k} {100 * v:.1f}%"
                     for k, v in more["energy_saves"].items()))
+    zm, zd = zrec["moe"], zrec["dense"]
+    log(f"  zoo (a) qwen3_moe_235b (2 layers) serve {zm['tok_s']:.1f} decode "
+        f"tok/s, TTFT p50 {zm['ttft_p50_ms']:.1f} ms, step p50 "
+        f"{zm['step_p50_ms']:.2f} ms; (b) dbrx_132b (2 layers) forward S=256 "
+        f"{zd['dbrx']['ms']:.1f} ms; (d) gemma_2b forward S={ZOO_GEMMA_SEQ} "
+        + ", ".join(f"{k} {zd['gemma'][k]:.1f} ms"
+                    for k, _ in PREFILL_POLICIES)
+        + f"; (e) starcoder2_15b {zd['starcoder2_15b']['ms']:.1f} ms, "
+        f"nemotron_4_340b (2 layers) {zd['nemotron_4_340b']['ms']:.1f} ms at "
+        f"S={ZOO_DENSE_SEQ}; (f) llama_3_2_vision_11b forward "
+        f"{zd['vlm']['ms']:.1f} ms, decode step p50 "
+        f"{zd['vlm']['step_ms_p50']:.2f} ms")
     rep = next(r for r in rows if (r["variant"], r["m"], r["k"], r["n"])
                == REPRESENTATIVE)
     xrep = next(r for r in rows if (r["variant"], r["m"], r["k"], r["n"])
@@ -2259,7 +2913,7 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/csrc/daism_matmul.cu",
         "replaces": "src/repro/kernels/daism_matmul.py:43",
         "launches": (serve_launches + pre_gemm + train_gemm + gen_gemm
-                     + drv_gemm + cnn_gemm + more_gemm),
+                     + drv_gemm + cnn_gemm + more_gemm + zoo_gemm),
         "max_abs_err": max(max_err, gemm_err),
         "ms": rep["ms"],
         "plain_ms": rep["plain_ms"],
@@ -2280,14 +2934,15 @@ def main(argv=None) -> int:
                   ("ms", "path", "paths", "wrapper_ms", "plain_ms",
                    "bound_ms", "bound_by", "library_ms", "f32_library_ms")}
         | {"shape": [xrep["m"], xrep["k"], xrep["n"]]},
+        "experts": zrec["experts"],
     }, {
         "name": "flash_attention",
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:54",
-        "launches": pre_flash,
+        "launches": pre_flash + zoo_flash_n,
         "max_abs_err": max(flash_errs["exact"], flash_errs["approx"],
-                           flash_err),
+                           flash_err, zrec["flash_err"]),
         "ms": frep["exact"]["ms"],
         "plain_ms": frep["exact"]["plain_ms"],
         "bound_ms": frep["exact"]["bound_ms"],
@@ -2298,6 +2953,7 @@ def main(argv=None) -> int:
         "approx": {k: frep["pc3_tr"][k] for k in
                    ("variant", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")},
+        "large_d": zrec["flash"],
     }]}
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     log(smi)

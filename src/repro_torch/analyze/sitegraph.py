@@ -129,7 +129,11 @@ def _input_specs(cfg: ArchConfig, *, batch: int, seq: int):
     if cfg.family == "cnn":
         side, chan = ((28, 1) if "lenet" in cfg.name else (32, 3))
         return {"images": _meta((batch, side, side, chan), "float32")}
-    return {"tokens": _meta((batch, seq), "int32")}
+    specs = {"tokens": _meta((batch, seq), "int32")}
+    if cfg.family == "vlm":
+        specs["image_embeds"] = _meta((batch, cfg.n_image_tokens,
+                                       cfg.d_model), cfg.compute_dtype)
+    return specs
 
 
 def _collect_segments(model) -> Dict[str, Tuple[Tuple[int, int], ...]]:

@@ -24,7 +24,9 @@ ARCH_IDS = (
 
 PAPER_IDS = ("lenet5", "vgg16", "vgg8")
 
-PORTED_IDS = ("tinyllama_1_1b", "lenet5", "vgg16", "vgg8")
+PORTED_IDS = ("tinyllama_1_1b", "gemma_2b", "starcoder2_15b",
+              "nemotron_4_340b", "dbrx_132b", "qwen3_moe_235b",
+              "llama_3_2_vision_11b", "lenet5", "vgg16", "vgg8")
 
 _ALIAS = {i.replace("_", "-"): i for i in ARCH_IDS + PAPER_IDS}
 

@@ -107,6 +107,59 @@ def daism_matmul(a: torch.Tensor, w: torch.Tensor,
     return out.to(torch_dtype(cfg.accum_dtype))
 
 
+def _expert_fwd_impl(x: torch.Tensor, w: torch.Tensor,
+                     cfg: DaismConfig) -> torch.Tensor:
+    """(E, C, K) @ (E, K, N) -> (E, C, N) f32, expert by expert (one kernel
+    launch for all of them on the ``pallas`` backend)."""
+    if cfg.backend is Backend.PALLAS and not cfg.exact:
+        from repro_torch.kernels import ops as kops  # local import: avoid cycle
+
+        return kops.daism_expert_matmul_pallas(x, w, cfg)
+    return torch.stack([_matmul_fwd_impl(x[i], w[i], cfg)
+                        for i in range(x.shape[0])])
+
+
+class _DaismExpertMatmul(torch.autograd.Function):
+    """:class:`_DaismMatmul` over a leading expert axis."""
+
+    @staticmethod
+    def forward(ctx, x, w, cfg: DaismConfig):
+        ctx.save_for_backward(x, w)
+        ctx.cfg = cfg
+        return _expert_fwd_impl(x, w, cfg)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        cfg = ctx.cfg
+        g = g.to(torch.float32)
+        wt = w.transpose(1, 2)
+        xt = x.transpose(1, 2)
+        if cfg.backward == "approx" and not cfg.exact:
+            dx = _expert_fwd_impl(g.to(x.dtype), wt.to(x.dtype).contiguous(),
+                                  cfg)
+            dw = _expert_fwd_impl(xt.to(x.dtype).contiguous(), g.to(x.dtype),
+                                  cfg)
+        else:  # straight-through: exact gradients
+            dx = g @ wt.to(torch.float32)
+            dw = xt.to(torch.float32) @ g
+        return dx.to(x.dtype), dw.to(w.dtype), None
+
+
+def daism_expert_matmul(x: torch.Tensor, w: torch.Tensor,
+                        cfg: DaismConfig) -> torch.Tensor:
+    """:func:`daism_matmul` of every expert, (E, C, K) @ (E, K, N) ->
+    (E, C, N) in ``cfg.accum_dtype``: expert ``e``'s result is
+    ``daism_matmul(x[e], w[e], cfg)`` (the reference ``vmap``s that over
+    the experts), with the same backward."""
+    out = _DaismExpertMatmul.apply(x, w, cfg)
+    if cfg.calibrated and not cfg.exact:
+        from .lut import shrinkage_factor  # bf16-table statistic
+
+        out = out * (1.0 / shrinkage_factor(cfg.variant))
+    return out.to(torch_dtype(cfg.accum_dtype))
+
+
 def daism_dot(x: torch.Tensor, w: torch.Tensor,
               cfg: DaismConfig) -> torch.Tensor:
     """``x @ w`` over the last axis of ``x``: (..., K) @ (K, N) -> (..., N).

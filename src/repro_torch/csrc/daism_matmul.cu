@@ -57,6 +57,13 @@
 //   * ragged M/N/K edges load as raw zeros, whose zero mantissa gives a
 //     zero product (which leaves a part's value alone), so the wrapper pads
 //     nothing; rows past M are not computed.
+//   * an expert axis (daism_matmul_experts, the MoE FFN's batched expert
+//     GEMM): E products (M, K) @ (K, N) in one launch, expert e in grid z
+//     (folded with the row tiles on the split-K path), its operands at
+//     per-expert element strides (0 for an `a` that every expert shares,
+//     as the dense MoE's broadcast tokens), its output block e M N. The
+//     axis only offsets the pointers, so each expert's rows are the bits
+//     of a 2-D launch on its operands;
 // Packing the fields, a 128 x 128 mantissa-product table in shared memory
 // and persistent tiles are left for later.
 //
@@ -102,7 +109,8 @@ template <int V>
 __global__ void __launch_bounds__(kThreads)
     daism_matmul_approx(const uint16_t* __restrict__ a,
                         const uint16_t* __restrict__ w,
-                        float* __restrict__ out, int M, int K, int N) {
+                        float* __restrict__ out, int M, int K, int N,
+                        long long a_es, long long w_es) {
   // multiplier fields, [k][m] (+1 column against bank conflicts on store)
   __shared__ int x_lines[kBK][kBM + 1];
   __shared__ int x_head[kBK][kBM + 1];
@@ -121,6 +129,11 @@ __global__ void __launch_bounds__(kThreads)
   const int ty = tid / 16;
   const int m0 = blockIdx.y * kBM;
   const int n0 = blockIdx.x * kBN;
+  // expert blockIdx.z: its operands at the experts' strides, its output
+  // block of M x N
+  a += blockIdx.z * a_es;
+  w += blockIdx.z * w_es;
+  out += static_cast<size_t>(blockIdx.z) * M * N;
 
   int rows = 0;  // rows of this thread inside M (rows grow with i)
 #pragma unroll
@@ -245,7 +258,8 @@ __global__ void __launch_bounds__(kSkThreads)
     daism_matmul_splitk(const uint16_t* __restrict__ a,
                         const uint16_t* __restrict__ w,
                         float* __restrict__ dst, int M, int K, int N,
-                        int direct, int w_vec) {
+                        int E, long long a_es, long long w_es, int direct,
+                        int w_vec) {
   // the chunk's multiplier fields {lines, head, exp, sign} per (row, k),
   // [MR][kKc] (dynamic: past 48 KB at 16 rows once kKc > 192)
   extern __shared__ int4 xs[];
@@ -254,9 +268,14 @@ __global__ void __launch_bounds__(kSkThreads)
   const int chunk = blockIdx.y;
   const int kb = chunk * kKc;
   const int kn = min(kKc, K - kb);
-  const int m0 = blockIdx.z * MR;
+  // blockIdx.z: expert e's row tile mt
+  const int mtiles = (M + MR - 1) / MR;
+  const int e = blockIdx.z / mtiles;
+  const int m0 = (blockIdx.z % mtiles) * MR;
   const int rows = min(MR, M - m0);
   const int n0 = (blockIdx.x * kSkThreads + tid) * NC;
+  a += e * a_es;
+  w += e * w_es;
 
   for (int idx = tid; idx < MR * kKc; idx += kSkThreads) {
     const int r = idx / kKc;
@@ -331,8 +350,9 @@ __global__ void __launch_bounds__(kSkThreads)
 #pragma unroll
   for (int i = 0; i < MR; ++i) {
     if (i >= rows) continue;
-    const size_t row = direct ? static_cast<size_t>(m0 + i)
-                              : static_cast<size_t>(chunk) * M + m0 + i;
+    // out is [E][M][N]; the workspace [chunks][E][M][N]
+    const size_t row = (direct ? 0 : static_cast<size_t>(chunk) * E * M) +
+                       static_cast<size_t>(e) * M + m0 + i;
 #pragma unroll
     for (int j = 0; j < NC; ++j) {
       if (n0 + j >= N) continue;
@@ -355,23 +375,34 @@ __global__ void __launch_bounds__(256)
   out[i] = total;
 }
 
+// The operands of the E experts' products, (M, K) @ (K, N) each: expert e
+// reads a + e a_es and w + e w_es (element strides; a_es = 0 shares one a)
+// and writes out + e M N.
+struct Experts {
+  int E;
+  long long a_es, w_es;
+};
+
 template <int V>
 int launch_tile(const uint16_t* a, const uint16_t* w, float* out, int M,
-                int K, int N, cudaStream_t s) {
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  daism_matmul_approx<V><<<grid, kThreads, 0, s>>>(a, w, out, M, K, N);
+                int K, int N, Experts ex, cudaStream_t s) {
+  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, ex.E);
+  daism_matmul_approx<V><<<grid, kThreads, 0, s>>>(a, w, out, M, K, N,
+                                                   ex.a_es, ex.w_es);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int V, int MR, int NC>
 int launch_splitk_mr(const uint16_t* a, const uint16_t* w, float* out,
-                     float* ws, int M, int K, int N, cudaStream_t s) {
+                     float* ws, int M, int K, int N, Experts ex,
+                     cudaStream_t s) {
   const int chunks = (K + kKc - 1) / kKc;
   const bool direct = chunks == 1;
-  const int w_vec =
-      (N % NC == 0) && (reinterpret_cast<uintptr_t>(w) % (2 * NC) == 0);
+  const int w_vec = (N % NC == 0) && (ex.w_es % NC == 0) &&
+                    (reinterpret_cast<uintptr_t>(w) % (2 * NC) == 0);
   const int cols = kSkThreads * NC;
-  const dim3 grid((N + cols - 1) / cols, chunks, (M + MR - 1) / MR);
+  const dim3 grid((N + cols - 1) / cols, chunks,
+                  ex.E * ((M + MR - 1) / MR));
   constexpr size_t smem = sizeof(int4) * MR * kKc;
   if constexpr (smem > 48 * 1024) {  // opt in once per instantiation
     static const cudaError_t opt_in = cudaFuncSetAttribute(
@@ -380,10 +411,11 @@ int launch_splitk_mr(const uint16_t* a, const uint16_t* w, float* out,
     if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
   }
   daism_matmul_splitk<V, MR, NC><<<grid, kSkThreads, smem, s>>>(
-      a, w, direct ? out : ws, M, K, N, direct, w_vec);
+      a, w, direct ? out : ws, M, K, N, ex.E, ex.a_es, ex.w_es, direct,
+      w_vec);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || direct) return static_cast<int>(err);
-  const long long mn = static_cast<long long>(M) * N;
+  const long long mn = static_cast<long long>(ex.E) * M * N;
   splitk_sum<<<static_cast<unsigned>((mn + 255) / 256), 256, 0, s>>>(
       ws, out, chunks, mn);
   return static_cast<int>(cudaGetLastError());
@@ -393,25 +425,42 @@ int launch_splitk_mr(const uint16_t* a, const uint16_t* w, float* out,
 // wrapper's _plan picks them; these are the instantiated pairs).
 template <int V>
 int launch_splitk(const uint16_t* a, const uint16_t* w, float* out, float* ws,
-                  int M, int K, int N, int rows, int cols, cudaStream_t s) {
+                  int M, int K, int N, Experts ex, int rows, int cols,
+                  cudaStream_t s) {
   if (rows == 1 && cols == 1)
-    return launch_splitk_mr<V, 1, 1>(a, w, out, ws, M, K, N, s);
+    return launch_splitk_mr<V, 1, 1>(a, w, out, ws, M, K, N, ex, s);
   if (rows == 4 && cols == 1)
-    return launch_splitk_mr<V, 4, 1>(a, w, out, ws, M, K, N, s);
+    return launch_splitk_mr<V, 4, 1>(a, w, out, ws, M, K, N, ex, s);
   if (rows == 4 && cols == 4)
-    return launch_splitk_mr<V, 4, 4>(a, w, out, ws, M, K, N, s);
+    return launch_splitk_mr<V, 4, 4>(a, w, out, ws, M, K, N, ex, s);
   if (rows == kSkMaxRows && cols == 1)
-    return launch_splitk_mr<V, kSkMaxRows, 1>(a, w, out, ws, M, K, N, s);
+    return launch_splitk_mr<V, kSkMaxRows, 1>(a, w, out, ws, M, K, N, ex, s);
   if (rows == kSkMaxRows && cols == 4)
-    return launch_splitk_mr<V, kSkMaxRows, 4>(a, w, out, ws, M, K, N, s);
+    return launch_splitk_mr<V, kSkMaxRows, 4>(a, w, out, ws, M, K, N, ex, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <int V>
 int launch_approx(const uint16_t* a, const uint16_t* w, float* out, float* ws,
-                  int M, int K, int N, int rows, int cols, cudaStream_t s) {
-  return rows ? launch_splitk<V>(a, w, out, ws, M, K, N, rows, cols, s)
-              : launch_tile<V>(a, w, out, M, K, N, s);
+                  int M, int K, int N, Experts ex, int rows, int cols,
+                  cudaStream_t s) {
+  return rows ? launch_splitk<V>(a, w, out, ws, M, K, N, ex, rows, cols, s)
+              : launch_tile<V>(a, w, out, M, K, N, ex, s);
+}
+
+using ApproxLaunch = int (*)(const uint16_t*, const uint16_t*, float*, float*,
+                             int, int, int, Experts, int, int, cudaStream_t);
+
+ApproxLaunch approx_launch(int variant) {
+  switch (variant) {
+    case daism::kFla: return launch_approx<daism::kFla>;
+    case daism::kHla: return launch_approx<daism::kHla>;
+    case daism::kPc2: return launch_approx<daism::kPc2>;
+    case daism::kPc3: return launch_approx<daism::kPc3>;
+    case daism::kPc2Tr: return launch_approx<daism::kPc2Tr>;
+    case daism::kPc3Tr: return launch_approx<daism::kPc3Tr>;
+    default: return nullptr;
+  }
 }
 
 }  // namespace
@@ -458,16 +507,36 @@ extern "C" int daism_matmul(const void* a, const void* w, void* out, void* ws,
         wsf, o, slices, mn);
     return static_cast<int>(cudaGetLastError());
   }
-  int (*launch)(const uint16_t*, const uint16_t*, float*, float*, int, int,
-                int, int, int, cudaStream_t) = nullptr;
-  switch (variant) {
-    case daism::kFla: launch = launch_approx<daism::kFla>; break;
-    case daism::kHla: launch = launch_approx<daism::kHla>; break;
-    case daism::kPc2: launch = launch_approx<daism::kPc2>; break;
-    case daism::kPc3: launch = launch_approx<daism::kPc3>; break;
-    case daism::kPc2Tr: launch = launch_approx<daism::kPc2Tr>; break;
-    case daism::kPc3Tr: launch = launch_approx<daism::kPc3Tr>; break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  const ApproxLaunch launch = approx_launch(variant);
+  if (launch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(a16, w16, o, wsf, M, K, N, Experts{1, 0, 0}, rows, cols, s);
+}
+
+// E experts' approximate products in one launch (the six approximate
+// variants; EXACT is refused): out[e] = a[e] @ w[e], (M, K) @ (K, N) each,
+// with a[e] = a + e a_es and w[e] = w + e w_es (element strides; a_es = 0
+// shares one a between the experts), out [E][M][N]. Each expert's rows are
+// the bits of a 2-D daism_matmul launch on its operands: the expert axis is
+// one more grid axis, and nothing in the summation order changes. `rows`,
+// `cols` and `ws` as for daism_matmul, the workspace E times larger
+// (ceil(K / chunk) * E * M * N floats). The caller guarantees, besides
+// daism_matmul's, E >= 1, E <= 65535 on the tile path and
+// E * ceil(M / rows) <= 65535 on the split-K path.
+extern "C" int daism_matmul_experts(const void* a, const void* w, void* out,
+                                    void* ws, int E, int M, int K, int N,
+                                    long long a_es, long long w_es,
+                                    int variant, int rows, int cols,
+                                    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (E < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (K == 0) {
+    return static_cast<int>(cudaMemsetAsync(
+        out, 0, sizeof(float) * static_cast<size_t>(E) * M * N, s));
   }
-  return launch(a16, w16, o, wsf, M, K, N, rows, cols, s);
+  const ApproxLaunch launch = approx_launch(variant);
+  if (launch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(static_cast<const uint16_t*>(a),
+                static_cast<const uint16_t*>(w), static_cast<float*>(out),
+                static_cast<float*>(ws), M, K, N, Experts{E, a_es, w_es},
+                rows, cols, s);
 }

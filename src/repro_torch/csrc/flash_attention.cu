@@ -43,6 +43,16 @@
 //     QK accumulator's layout is the PV A fragment's, so p never goes
 //     through shared memory;
 //   * a warp skips the key columns above its causal diagonal.
+//   Head dims above 128 (KD = 12 for D <= 192, 16 for D <= 256, D padded
+//   with zeros): a warp's 16 x D f32 accumulator alone takes 8 KD registers
+//   a thread (128 at D = 256), so with q's fragments in registers (4 KD)
+//   and 128 scores (64) it would pass the 255-register limit, and a 2-stage
+//   ring of 128-key K and V tiles (4 x 128 x 264 x 2 bytes at D = 256)
+//   would pass the 227 KB of shared memory. So these dims take 64-key
+//   tiles (32 score registers; in exact mode the tile width changes only
+//   the summation order), read q's fragments from shared memory at each
+//   step, and load one 16-column V fragment at a time for its two MMAs:
+//   165 KB of shared memory at D = 256, one block an SM.
 //
 // flash_fwd: the six approximate variants, and exact mode on f32 inputs
 //   (the tensor cores' TF32 would break the f32 bound). Approximate mode
@@ -67,7 +77,9 @@
 //     the exps and the row sum, and writes p back in place (as the packed
 //     fields of its bf16 rounding in approximate mode); m, l and the
 //     correction per row live in shared memory, acc in registers
-//     (4 rows x D/16 columns per thread).
+//     (4 rows x D/16 columns per thread, D/16 rounded up to 1, 2, 4, 8, 12
+//     or 16). At D = 256 the fields take 227 KB of shared memory (one block
+//     an SM).
 // Both read q, k, v, o through their strides (the (B, S, H, D) layout needs
 // no transpose), compute the grouped-query kv head instead of repeating it,
 // load ragged edges as zeros (a zero mantissa gives a zero product), do not
@@ -85,7 +97,7 @@ namespace {
 
 constexpr int kBQ = 64;        // query rows per block
 constexpr int kBK = 128;       // keys per KV tile: part of the function
-constexpr int kMaxD = 128;     // largest head dim
+constexpr int kMaxD = 256;     // largest head dim
 constexpr int kThreads = 256;  // 16 x 16 threads
 constexpr int kRows = kBQ / 16;     // query rows per thread
 constexpr int kKeys = kBK / 16;     // scores per thread along the keys
@@ -202,7 +214,8 @@ __host__ __device__ constexpr int smem_words(int d) {
   return d * (kBQ + 1) + d * (kBK + 1) + kBQ * kBK + 3 * kBQ;
 }
 
-// NC: output columns per thread (ceil(D / 16), a power of two <= 8)
+// NC: output columns per thread (ceil(D / 16) rounded up to 1, 2, 4, 8, 12
+// or 16)
 template <int V, typename T, int NC>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
@@ -408,7 +421,9 @@ int launch(const void* q, const void* k, const void* v, void* o,
   if (nc <= 1) return launch_nc<V, T, 1>(q, k, v, o, p, grid, s);
   if (nc <= 2) return launch_nc<V, T, 2>(q, k, v, o, p, grid, s);
   if (nc <= 4) return launch_nc<V, T, 4>(q, k, v, o, p, grid, s);
-  return launch_nc<V, T, 8>(q, k, v, o, p, grid, s);
+  if (nc <= 8) return launch_nc<V, T, 8>(q, k, v, o, p, grid, s);
+  if (nc <= 12) return launch_nc<V, T, 12>(q, k, v, o, p, grid, s);
+  return launch_nc<V, T, 16>(q, k, v, o, p, grid, s);
 }
 
 
@@ -420,17 +435,24 @@ constexpr int kTcWarps = 4;
 constexpr int kTcThreads = 32 * kTcWarps;
 static_assert(kBQ == 16 * kTcWarps, "each warp owns 16 query rows");
 
-// KD: 16-column steps of the head dim (D padded to 16 KD with zeros)
+// KD: 16-column steps of the head dim (D padded to 16 KD with zeros). Up
+// to KD = 8: 128-key tiles and q's fragments in registers; above: 64-key
+// tiles and q's fragments read from shared memory (kQs), see the note at
+// the top.
 template <int KD>
 struct TcTile {
+  static constexpr bool kQs = KD > 8;
+  static constexpr int kKeys = kQs ? 64 : kBK;  // keys per KV tile
   static constexpr int kDp = 16 * KD;
   static constexpr int kLd = kDp + 8;   // row pitch, elements: +16 bytes
-  static constexpr int kElems = kBK * kLd;  // one K or V tile
-  // two stages of (K, V); q passes through stage 1's K buffer first
-  static constexpr int kSmemBytes = 4 * kElems * 2;
+  static constexpr int kElems = kKeys * kLd;  // one K or V tile
+  // two stages of (K, V); q passes through stage 1's K buffer first, or
+  // with kQs stays in its own buffer after them
+  static constexpr int kSmemBytes = (4 * kElems + (kQs ? kBQ * kLd : 0)) * 2;
   // blocks an SM holds by shared memory (72 KB at D = 64: 3); the
   // registers are capped to match
   static constexpr int kMinBlocks = KD <= 4 ? 3 : KD <= 6 ? 2 : 1;
+  static_assert(kQs || kBQ <= kKeys, "q fits in a K buffer");
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -531,9 +553,11 @@ __global__ void __launch_bounds__(kTcThreads, TcTile<KD>::kMinBlocks)
                  const uint16_t* __restrict__ v, uint16_t* __restrict__ o,
                  Params p, int vec_in, int vec_out) {
   using T = TcTile<KD>;
+  constexpr int BK = T::kKeys;
   extern __shared__ uint4 smem_tc[];
   uint16_t* const tiles = reinterpret_cast<uint16_t*>(smem_tc);
   // stage st: K at tiles + 2 st kElems, V right after it
+  uint16_t* const q_tile = tiles + (T::kQs ? 4 : 2) * T::kElems;
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -553,23 +577,25 @@ __global__ void __launch_bounds__(kTcThreads, TcTile<KD>::kMinBlocks)
 
   const int q_last = min(q0 + kBQ, p.Sq) - 1;
   const int k_end = p.causal ? min(p.kv_len, q_last + 1) : p.kv_len;
-  const int n_tiles = (k_end + kBK - 1) / kBK;
+  const int n_tiles = (k_end + BK - 1) / BK;
 
-  // q (into stage 1's K buffer) and KV tile 0 (stage 0), then q's
-  // fragments into registers before tile 1 overwrites stage 1
-  load_rows<KD, kBQ>(tiles + 2 * T::kElems, qb, p.q_ss, q0, p.Sq, D, vec_in);
-  load_rows<KD, kBK>(tiles, kb, p.k_ss, 0, p.Skv, D, vec_in);
-  load_rows<KD, kBK>(tiles + T::kElems, vb, p.v_ss, 0, p.Skv, D, vec_in);
+  // q and KV tile 0 (stage 0); without kQs, q's fragments go into
+  // registers before tile 1 overwrites stage 1's K buffer, which held q
+  load_rows<KD, kBQ>(q_tile, qb, p.q_ss, q0, p.Sq, D, vec_in);
+  load_rows<KD, BK>(tiles, kb, p.k_ss, 0, p.Skv, D, vec_in);
+  load_rows<KD, BK>(tiles + T::kElems, vb, p.v_ss, 0, p.Skv, D, vec_in);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  uint32_t qf[KD][4];
+  // q's fragment kd of this warp's 16 rows
+  const uint16_t* const q_frag =
+      q_tile + (16 * warp + lane % 16) * T::kLd + (lane / 16) * 8;
+  uint32_t qf[T::kQs ? 1 : KD][4];
+  if constexpr (!T::kQs) {
 #pragma unroll
-  for (int kd = 0; kd < KD; ++kd)
-    ldsm_x4(qf[kd], tiles + 2 * T::kElems +
-                        (16 * warp + lane % 16) * T::kLd + 16 * kd +
-                        (lane / 16) * 8);
-  __syncthreads();
+    for (int kd = 0; kd < KD; ++kd) ldsm_x4(qf[kd], q_frag + 16 * kd);
+    __syncthreads();
+  }
 
   float acc[2 * KD][4];
 #pragma unroll
@@ -581,12 +607,12 @@ __global__ void __launch_bounds__(kTcThreads, TcTile<KD>::kMinBlocks)
   const int rows[2] = {wr0 + g, wr0 + g + 8};
 
   for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * kBK;
+    const int k0 = j * BK;
     if (j + 1 < n_tiles) {
       uint16_t* nk = tiles + 2 * ((j + 1) & 1) * T::kElems;
-      load_rows<KD, kBK>(nk, kb, p.k_ss, k0 + kBK, p.Skv, D, vec_in);
-      load_rows<KD, kBK>(nk + T::kElems, vb, p.v_ss, k0 + kBK, p.Skv, D,
-                         vec_in);
+      load_rows<KD, BK>(nk, kb, p.k_ss, k0 + BK, p.Skv, D, vec_in);
+      load_rows<KD, BK>(nk + T::kElems, vb, p.v_ss, k0 + BK, p.Skv, D,
+                        vec_in);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -597,36 +623,39 @@ __global__ void __launch_bounds__(kTcThreads, TcTile<KD>::kMinBlocks)
     const uint16_t* vs = ks + T::kElems;
 
     // the last key offset of this tile any row of the warp sees
-    const int key_hi = p.causal ? wr0 + 15 - k0 : kBK - 1;
+    const int key_hi = p.causal ? wr0 + 15 - k0 : BK - 1;
     if (wr0 < p.Sq && key_hi >= 0) {
-      // S = Q K^T: 16 n8 tiles over the 128 keys
-      float s[kBK / 8][4];
+      // S = Q K^T: BK / 8 n8 tiles over the tile's keys
+      float s[BK / 8][4];
 #pragma unroll
-      for (int t = 0; t < kBK / 8; ++t)
+      for (int t = 0; t < BK / 8; ++t)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[t][e] = 0.0f;
 #pragma unroll
       for (int kd = 0; kd < KD; ++kd) {
+        uint32_t qs[4];
+        if constexpr (T::kQs) ldsm_x4(qs, q_frag + 16 * kd);
+        const uint32_t(&qa)[4] = T::kQs ? qs : qf[T::kQs ? 0 : kd];
 #pragma unroll
-        for (int np = 0; np < kBK / 16; ++np) {
+        for (int np = 0; np < BK / 16; ++np) {
           if (16 * np > key_hi) continue;
           uint32_t bk[4];
           ldsm_x4(bk, ks + (16 * np + (lane & 7) + (lane >> 4) * 8) * T::kLd +
                           16 * kd + ((lane >> 3) & 1) * 8);
-          mma_bf16(s[2 * np], qf[kd], bk[0], bk[1]);
-          mma_bf16(s[2 * np + 1], qf[kd], bk[2], bk[3]);
+          mma_bf16(s[2 * np], qa, bk[0], bk[1]);
+          mma_bf16(s[2 * np + 1], qa, bk[2], bk[3]);
         }
       }
 
       // scale and mask (a tile wholly visible to the warp needs no mask);
       // the row max over the quad
       const bool full =
-          k0 + kBK <= p.kv_len && (!p.causal || k0 + kBK - 1 <= wr0);
+          k0 + BK <= p.kv_len && (!p.causal || k0 + BK - 1 <= wr0);
       // (four independent max and sum chains, one per fragment slot)
       float mx4[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
       if (full) {
 #pragma unroll
-        for (int t = 0; t < kBK / 8; ++t)
+        for (int t = 0; t < BK / 8; ++t)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             s[t][e] *= p.scale;
@@ -634,7 +663,7 @@ __global__ void __launch_bounds__(kTcThreads, TcTile<KD>::kMinBlocks)
           }
       } else {
 #pragma unroll
-        for (int t = 0; t < kBK / 8; ++t)
+        for (int t = 0; t < BK / 8; ++t)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int key = k0 + 8 * t + 2 * c4 + (e & 1);
@@ -656,7 +685,7 @@ __global__ void __launch_bounds__(kTcThreads, TcTile<KD>::kMinBlocks)
       }
       if (full) {
 #pragma unroll
-        for (int t = 0; t < kBK / 8; ++t)
+        for (int t = 0; t < BK / 8; ++t)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             s[t][e] = expf(s[t][e] - m_new[e >> 1]);
@@ -664,7 +693,7 @@ __global__ void __launch_bounds__(kTcThreads, TcTile<KD>::kMinBlocks)
           }
       } else {
 #pragma unroll
-        for (int t = 0; t < kBK / 8; ++t)
+        for (int t = 0; t < BK / 8; ++t)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int key = k0 + 8 * t + 2 * c4 + (e & 1);
@@ -687,30 +716,43 @@ __global__ void __launch_bounds__(kTcThreads, TcTile<KD>::kMinBlocks)
 
       // acc += p_hi V + p_lo V, 16 keys a step: the V fragments first, then
       // the p_hi products of every d tile, then the p_lo ones, so no MMA
-      // waits on the one before it
+      // waits on the one before it (with kQs one d tile at a time, which
+      // keeps the same order of adds into each accumulator)
 #pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) {
+      for (int kk = 0; kk < BK / 16; ++kk) {
         if (16 * kk > key_hi) continue;
         uint32_t ph[4], pl[4];
         split_p(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
         split_p(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
         split_p(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
         split_p(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
-        uint32_t bv[KD][4];
+        const uint16_t* const v_frag =
+            vs + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * T::kLd +
+            (lane >> 4) * 8;
+        if constexpr (T::kQs) {
 #pragma unroll
-        for (int dp = 0; dp < KD; ++dp)
-          ldsm_x4_trans(bv[dp], vs + (16 * kk + (lane & 7) +
-                                      ((lane >> 3) & 1) * 8) * T::kLd +
-                                    16 * dp + (lane >> 4) * 8);
+          for (int dp = 0; dp < KD; ++dp) {
+            uint32_t bv[4];
+            ldsm_x4_trans(bv, v_frag + 16 * dp);
+            mma_bf16(acc[2 * dp], ph, bv[0], bv[1]);
+            mma_bf16(acc[2 * dp + 1], ph, bv[2], bv[3]);
+            mma_bf16(acc[2 * dp], pl, bv[0], bv[1]);
+            mma_bf16(acc[2 * dp + 1], pl, bv[2], bv[3]);
+          }
+        } else {
+          uint32_t bv[KD][4];
 #pragma unroll
-        for (int dp = 0; dp < KD; ++dp) {
-          mma_bf16(acc[2 * dp], ph, bv[dp][0], bv[dp][1]);
-          mma_bf16(acc[2 * dp + 1], ph, bv[dp][2], bv[dp][3]);
-        }
+          for (int dp = 0; dp < KD; ++dp) ldsm_x4_trans(bv[dp], v_frag + 16 * dp);
 #pragma unroll
-        for (int dp = 0; dp < KD; ++dp) {
-          mma_bf16(acc[2 * dp], pl, bv[dp][0], bv[dp][1]);
-          mma_bf16(acc[2 * dp + 1], pl, bv[dp][2], bv[dp][3]);
+          for (int dp = 0; dp < KD; ++dp) {
+            mma_bf16(acc[2 * dp], ph, bv[dp][0], bv[dp][1]);
+            mma_bf16(acc[2 * dp + 1], ph, bv[dp][2], bv[dp][3]);
+          }
+#pragma unroll
+          for (int dp = 0; dp < KD; ++dp) {
+            mma_bf16(acc[2 * dp], pl, bv[dp][0], bv[dp][1]);
+            mma_bf16(acc[2 * dp + 1], pl, bv[dp][2], bv[dp][3]);
+          }
         }
       }
     }
@@ -782,6 +824,10 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
     case 6: return launch_tc_kd<6>(q, k, v, o, p, grid, vec_in, vec_out, s);
     case 7: return launch_tc_kd<7>(q, k, v, o, p, grid, vec_in, vec_out, s);
     case 8: return launch_tc_kd<8>(q, k, v, o, p, grid, vec_in, vec_out, s);
+    case 9: case 10: case 11: case 12:
+      return launch_tc_kd<12>(q, k, v, o, p, grid, vec_in, vec_out, s);
+    case 13: case 14: case 15: case 16:
+      return launch_tc_kd<16>(q, k, v, o, p, grid, vec_in, vec_out, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -794,7 +840,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
 // of q, k, v and o, in that order (the head dim is contiguous). `is_f32`:
 // the inputs and output are f32 (exact mode only) instead of bf16.
 // bf16 exact launches flash_fwd_tc, everything else flash_fwd.
-// The caller guarantees 1 <= D <= 128, H % KH == 0, B * H <= 65535,
+// The caller guarantees 1 <= D <= 256, H % KH == 0, B * H <= 65535,
 // 1 <= kv_len <= Skv and Sq >= 1.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, int B, int H, int KH, int Sq,

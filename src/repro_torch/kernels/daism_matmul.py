@@ -27,10 +27,16 @@ into slices where the tile grid leaves SMs idle, the parts added by a
 second pass) and ``"edge"`` (the same kernel with plain zero-filled loads,
 for K or N not a multiple of 8 or operands not 16-byte aligned).
 
+:func:`daism_matmul_experts_kernel` runs E such products, one per expert
+of an MoE layer, in one launch (an expert grid axis; EXACT is not on it):
+each expert's rows are the bits of a 2-D launch on its operands.
+:func:`daism_matmul_experts_plain` is the per-expert loop over
+:func:`daism_matmul_plain`.
+
 ``launches`` counts GEMM calls that launched the kernel (one per call,
-whatever the path), ``sum_launches`` the split-K paths' second pass (the
-sum of the chunks or K slices), so a run can show that its main path went
-through the kernel.
+whatever the path, one for all the experts of a call), ``sum_launches``
+the split-K paths' second pass (the sum of the chunks or K slices), so a
+run can show that its main path went through the kernel.
 """
 from __future__ import annotations
 
@@ -66,6 +72,10 @@ SPLIT_K_TILE_BLOCKS = 2 * 132
 # A split-K grid wants this many threads (128 a block) to give each of the
 # 132 SMs' 4 schedulers two warps; below it a plan spreads the work thinner.
 SPLIT_K_MIN_THREADS = 132 * 4 * 2 * 32
+# ... and takes the tile path where its f32 workspace of chunk parts would
+# pass this many bytes (only the expert products come near it: Qwen3-MoE's
+# 128 experts at M = 16 would need 0.8 GB)
+SPLIT_K_MAX_WS_BYTES = 2**28
 _MAX_GRID = 65535
 # EXACT (csrc/exact_gemm.cuh): tiles of 64 x 128 (one consumer warpgroup)
 # or 128 x 256 (two); K in stages of 64. A grid of fewer than EXACT_WAVE
@@ -79,7 +89,8 @@ EXACT_DEEP_STAGES = 16
 
 launches = 0
 sum_launches = 0
-_launch_c = None  # the bound C entry point, set on first use
+_launch_c = None  # the bound C entry points, set on first use
+_experts_c = None
 
 
 def _bind():
@@ -95,6 +106,13 @@ def _bind():
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    experts = lib.daism_matmul_experts
+    experts.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                        + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
+                        + [ctypes.c_void_p])
+    experts.restype = ctypes.c_int
+    global _experts_c
+    _experts_c = experts
     _launch_c = fn
     return fn
 
@@ -112,7 +130,7 @@ def _check_operands(a: torch.Tensor, w: torch.Tensor) -> None:
 
 def _plan(m: int, k: int, n: int, variant: Variant,
           path: Optional[str] = None, kc: int = KC,
-          aligned: bool = True) -> Optional[tuple]:
+          aligned: bool = True, experts: int = 1) -> Optional[tuple]:
     """How an (M, K) @ (K, N) call runs. ``path`` forces a path; ``None``
     picks it by shape. The one rule for every variant; a speed choice only
     (PERF.md has the measurements).
@@ -124,7 +142,9 @@ def _plan(m: int, k: int, n: int, variant: Variant,
     products) while the grid keeps :data:`SPLIT_K_MIN_THREADS`, else 1 (4x
     the threads); row tiles of 4 (a decode batch) or 16, and of 1 for one
     row or a narrow GEMM (k/v at decode), which gives each row its own
-    blocks.
+    blocks. ``experts`` products in one launch count as that many times
+    the blocks and threads; the tile path is taken where the split-K
+    workspace would pass :data:`SPLIT_K_MAX_WS_BYTES`.
 
     EXACT: ``(path, tile rows, K slices)``, ``path`` one of
     :data:`EXACT_PATHS`. ``aligned`` says both operands start on 16 bytes;
@@ -138,21 +158,23 @@ def _plan(m: int, k: int, n: int, variant: Variant,
     the default's slices."""
     if Variant(variant) is Variant.EXACT:
         return _exact_plan(m, k, n, path, aligned)
+    chunks = -(-k // kc)
     if path is None:
-        tile_blocks = -(-m // BLOCK_M) * -(-n // BLOCK_M)
+        tile_blocks = experts * -(-m // BLOCK_M) * -(-n // BLOCK_M)
         split = m <= SPLIT_K_MAX_M and (
-            m <= SPLIT_K_ALWAYS_M or tile_blocks < SPLIT_K_TILE_BLOCKS)
+            m <= SPLIT_K_ALWAYS_M or tile_blocks < SPLIT_K_TILE_BLOCKS) and (
+            chunks < 2 or 4 * chunks * experts * m * n <= SPLIT_K_MAX_WS_BYTES)
     elif path in ("tile", "splitk"):
         split = path == "splitk"
     else:
         raise ValueError(f"path must be 'tile' or 'splitk', got {path!r}")
     if not split:
         return None
-    chunks = -(-k // kc)
-    if m <= 1 or n * chunks * -(-m // 4) < SPLIT_K_MIN_THREADS:
+    if m <= 1 or experts * n * chunks * -(-m // 4) < SPLIT_K_MIN_THREADS:
         return 1, 1
     rows = 4 if m <= 4 else 16
-    wide = -(-n // 4) * chunks * -(-m // rows) >= SPLIT_K_MIN_THREADS
+    wide = (experts * -(-n // 4) * chunks * -(-m // rows)
+            >= SPLIT_K_MIN_THREADS)
     return rows, 4 if wide else 1
 
 
@@ -247,6 +269,102 @@ def _launch(a: torch.Tensor, w: torch.Tensor, variant: Variant,
     launches += 1
     sum_launches += second_pass
     return out
+
+
+def _check_expert_operands(x: torch.Tensor, w: torch.Tensor) -> None:
+    if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] \
+            or x.shape[2] != w.shape[1]:
+        raise ValueError(f"expert GEMMs take (E, C, K) @ (E, K, N), got "
+                         f"{tuple(x.shape)} @ {tuple(w.shape)}")
+    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        raise ValueError("Pallas DAISM kernel is bfloat16-only; f32 uses the "
+                         "dual-plane jnp backend")
+
+
+def daism_matmul_experts_kernel(x: torch.Tensor, w: torch.Tensor,
+                                variant: Variant = Variant.PC3_TR
+                                ) -> torch.Tensor:
+    """(E, C, K) @ (E, K, N) bf16 CUDA tensors -> (E, C, N) f32: every
+    expert's product in one launch of the kernel, on the path :func:`_plan`
+    picks for the shape and E. Expert ``e``'s rows are the bits of
+    ``daism_matmul_kernel(x[e], w[e])``.
+
+    Each expert's ``x[e]`` and ``w[e]`` must be row-major; the expert
+    strides are free, and ``x``'s may be 0 (one (C, K) operand broadcast to
+    every expert, as ``expand`` makes it), so nothing is copied. EXACT is
+    refused: exact expert sites run the plain batched product.
+    """
+    return _launch_experts(x, w, variant)
+
+
+def _row_major(t: torch.Tensor) -> bool:
+    """Each (rows, cols) matrix of the 3-D ``t`` is row-major."""
+    return (t.shape[2] <= 1 or t.stride(2) == 1) and (
+        t.shape[1] <= 1 or t.stride(1) == t.shape[2])
+
+
+def _launch_experts(x: torch.Tensor, w: torch.Tensor, variant: Variant,
+                    path: Optional[str] = None) -> torch.Tensor:
+    """:func:`daism_matmul_experts_kernel` with the path forced (``"tile"``
+    or ``"splitk"``) or, for ``None``, picked by :func:`_plan`."""
+    global launches, sum_launches
+    _check_expert_operands(x, w)
+    if x.device.type != "cuda" or w.device != x.device:
+        raise ValueError(f"daism_matmul_experts_kernel needs both operands on "
+                         f"one CUDA device, got {x.device} and {w.device}")
+    if not (_row_major(x) and _row_major(w)):
+        raise ValueError("daism_matmul_experts_kernel needs each expert's "
+                         "operands row-major")
+    variant = Variant(variant)
+    if variant is Variant.EXACT:
+        raise ValueError("the expert GEMM kernel runs the six approximate "
+                         "variants; exact expert sites use the plain batched "
+                         "product")
+    e, m, k = x.shape
+    n = w.shape[2]
+    plan = _plan(m, k, n, variant, path, experts=e)
+    parts = -(-k // KC) if plan else 1
+    grid = ((parts, e * -(-m // plan[0])) if plan
+            else (-(-m // BLOCK_M), e))
+    if max(m, k, n) >= 2**31 or max(grid) > _MAX_GRID:
+        raise ValueError(f"shape ({e}, {m}, {k}, {n}) exceeds the kernel's "
+                         "grid")
+    out = torch.empty((e, m, n), dtype=torch.float32, device=x.device)
+    if e == 0 or m == 0 or n == 0:
+        return out
+    second_pass = parts > 1
+    ws = (torch.empty((parts, e, m, n), dtype=torch.float32, device=x.device)
+          if second_pass else None)
+    if _experts_c is None:
+        _bind()
+    rows, cols = plan or (0, 0)
+    args = (x.data_ptr(), w.data_ptr(), out.data_ptr(),
+            ws.data_ptr() if ws is not None else None, e, m, k, n,
+            x.stride(0) if e > 1 else 0, w.stride(0) if e > 1 else 0,
+            VARIANT_IDS[variant], rows, cols,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if x.device.index == torch.cuda.current_device():
+        err = _experts_c(*args)
+    else:  # the C launch runs on the calling thread's current device
+        with torch.cuda.device(x.device):
+            err = _experts_c(*args)
+    if err != 0:
+        raise RuntimeError(f"daism_matmul_experts launch failed: CUDA error "
+                           f"{err}")
+    launches += 1
+    sum_launches += second_pass
+    return out
+
+
+def daism_matmul_experts_plain(x: torch.Tensor, w: torch.Tensor,
+                               variant: Variant = Variant.PC3_TR
+                               ) -> torch.Tensor:
+    """The expert kernel's function in plain torch, on any device: the loop
+    of :func:`daism_matmul_plain` over the experts, (E, C, K) @ (E, K, N)
+    bf16 -> (E, C, N) f32."""
+    _check_expert_operands(x, w)
+    return torch.stack([daism_matmul_plain(x[i], w[i], variant)
+                        for i in range(x.shape[0])])
 
 
 def daism_matmul_plain(a: torch.Tensor, w: torch.Tensor,

@@ -37,7 +37,7 @@ from .daism_matmul import VARIANT_IDS
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
 KERNEL_BLOCK_K = 128  # the CUDA kernel's KV tile (csrc/flash_attention.cu kBK)
-KERNEL_MAX_D = 128
+KERNEL_MAX_D = 256  # the largest head dim the CUDA kernels take (kMaxD)
 _MAX_GRID_Y = 65535
 
 _NEG_INF = -1e30

@@ -28,3 +28,22 @@ def daism_matmul_pallas(a: torch.Tensor, w: torch.Tensor,
         return _dm.daism_matmul_plain(a, w, cfg.variant)
     raise ValueError(f"daism_matmul_pallas: unsupported devices {a.device} / "
                      f"{w.device}")
+
+
+def daism_expert_matmul_pallas(x: torch.Tensor, w: torch.Tensor,
+                               cfg: DaismConfig) -> torch.Tensor:
+    """(E, C, K) @ (E, K, N) bf16 -> (E, C, N) f32 under ``cfg.variant``:
+    every expert in one launch of the CUDA kernel for CUDA tensors (``x``
+    may be an expert-broadcast view), the per-expert plain version for CPU
+    tensors, a ``meta`` result for ``meta`` tensors. No fallback between
+    them."""
+    if x.device.type == "meta" and w.device.type == "meta":
+        _dm._check_expert_operands(x, w)
+        return torch.empty((x.shape[0], x.shape[1], w.shape[2]),
+                           dtype=torch.float32, device="meta")
+    if x.device.type == "cuda":
+        return _dm.daism_matmul_experts_kernel(x, w, cfg.variant)
+    if x.device.type == "cpu" and w.device.type == "cpu":
+        return _dm.daism_matmul_experts_plain(x, w, cfg.variant)
+    raise ValueError(f"daism_expert_matmul_pallas: unsupported devices "
+                     f"{x.device} / {w.device}")

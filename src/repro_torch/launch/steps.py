@@ -13,8 +13,9 @@ to lay out or compile).
   state are updated in place (see ``optim/adamw.py``).
 * ``prefill_step(params, batch) -> logits``: the full-sequence forward
   under ``torch.no_grad()``.
-* ``decode_step(params, tokens, cache) -> (logits, cache)``: one token
-  through ``model.decode_step`` under ``torch.no_grad()``, on a slot cache
+* ``decode_step(params, tokens, cache, extra=None) -> (logits, cache)``:
+  one token through ``model.decode_step`` under ``torch.no_grad()`` (a
+  VLM's ``extra`` is its ``image_embeds``), on a slot cache
   from ``init_cache(batch_size, max_seq)`` (allocated on the artifacts'
   device; the reference's ``make_cache_shapes`` gives the same tree
   abstractly). The cache is written in place.
@@ -39,7 +40,7 @@ class Artifacts:
     model: Any
     train_step: Callable      # (params, opt, batch) -> (params, opt, metrics)
     prefill_step: Callable    # (params, batch) -> logits
-    decode_step: Callable     # (params, tokens, cache) -> (logits, cache)
+    decode_step: Callable     # (params, tokens, cache[, extra]) -> (logits, cache)
     init_params: Callable[[int], Any]
     init_opt: Callable[[Any], AdamWState]
     init_cache: Callable[[int, int], Dict[str, torch.Tensor]]
@@ -54,7 +55,12 @@ def build_artifacts(cfg: ArchConfig, *, device="cuda",
     dev = model.device
 
     def to_device(batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(v).to(dev).long() for k, v in batch.items()}
+        # token ids as int64; float inputs (a VLM's image_embeds) as they are
+        out = {}
+        for k, v in batch.items():
+            t = torch.as_tensor(v).to(dev)
+            out[k] = t if t.is_floating_point() else t.long()
+        return out
 
     def train_step(params, opt_state: AdamWState, batch):
         batch = to_device(batch)
@@ -84,9 +90,13 @@ def build_artifacts(cfg: ArchConfig, *, device="cuda",
             logits, _ = model.forward(params, to_device(batch))
         return logits
 
-    def decode_step(params, tokens, cache):
+    def decode_step(params, tokens, cache, extra=None):
         tokens = torch.as_tensor(tokens).to(dev).long()
         with torch.no_grad():
+            if cfg.family == "vlm":
+                return model.decode_step(params, tokens, cache,
+                                         image_embeds=torch.as_tensor(
+                                             extra).to(dev))
             return model.decode_step(params, tokens, cache)
 
     def init_cache(batch_size: int, max_seq: int):

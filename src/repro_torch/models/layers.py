@@ -348,9 +348,31 @@ def embed(ctx: Ctx, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return ctx.param("embedding")[tokens]
 
 
+def tied_lm_head(e: torch.Tensor) -> torch.Tensor:
+    """The tied lm_head's (d, V) operand: ``e.T`` made contiguous (the GEMM
+    kernel reads its ``w`` row-major), the same bits however it is taken.
+
+    The copy is taken once per embedding tensor and kept on it (for
+    Gemma-2B's (256000, 2048) bf16 table a copy takes 6.4 ms on the H100,
+    15% of a decode step; PERF.md), and taken again once the tensor has
+    been written in place (its version counter moved). While the
+    embedding takes gradients, or on the ``meta`` device, it is taken at
+    every call. An inference tensor has no version counter and can be
+    written only inside ``torch.inference_mode``; its copy is kept as it
+    was taken."""
+    if e.requires_grad or e.device.type == "meta":
+        return e.t().contiguous()
+    version = None if torch.is_inference(e) else e._version
+    kept = getattr(e, "_repro_lm_head", None)
+    if kept is None or kept[0] != version:
+        kept = (version, e.t().contiguous())
+        e._repro_lm_head = kept
+    return kept[1]
+
+
 def unembed(ctx: Ctx, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
-        e = ctx.param("embedding")
-        return policy_dot(cfg.approx_policy, x, e.t().contiguous(),
+        return policy_dot(cfg.approx_policy, x,
+                          tied_lm_head(ctx.param("embedding")),
                           name="lm_head", kind=OpKind.LM_HEAD)
     return dense(ctx, "lm_head", x, cfg, kind=OpKind.LM_HEAD)

@@ -1,5 +1,5 @@
-"""Model registry: family -> model class (dense decoder LMs and the paper's
-CNNs so far), plus the shared LM and classifier losses."""
+"""Model registry: family -> model class (the decoder-only LMs: dense, MoE
+and VLM; the paper's CNNs), plus the shared LM and classifier losses."""
 from __future__ import annotations
 
 import torch
@@ -8,7 +8,8 @@ from .cnn import CNNModel
 from .common import ArchConfig
 from .transformer import DecoderLM
 
-_FAMILIES = {"dense": DecoderLM, "cnn": CNNModel}
+_FAMILIES = {"dense": DecoderLM, "moe": DecoderLM, "vlm": DecoderLM,
+             "cnn": CNNModel}
 
 
 def build_model(cfg: ArchConfig, device="cuda"):

@@ -1,15 +1,19 @@
-"""Decoder-only transformer (dense): ``forward``, slot-cache generation and
-paged serving steps.
+"""Decoder-only transformer (dense, MoE, VLM): ``forward``, slot-cache
+generation and paged serving steps.
 
 Parameters are the JAX package's tree: stacked ``blocks`` tensors with a
-leading layer axis. The reference consumes the stack with one ``lax.scan``
-per policy segment; here each segment is a Python loop over its layers,
-run under the site scope ``layer_{lo}`` of its first layer, so per-depth
-rules resolve exactly as they do in the reference.
+leading layer axis (and, for a VLM, stacked ``cross_blocks``). The
+reference consumes the stack with one ``lax.scan`` per policy segment;
+here each segment is a Python loop over its layers, run under the site
+scope ``layer_{lo}`` of its first layer, so per-depth rules resolve
+exactly as they do in the reference.
 
 Ported: ``init``, ``forward``, ``init_cache``/``prefill``/``decode_step``
 (slot caches, ring buffers), ``init_paged_cache``, ``paged_step`` and
-``paged_verify_step``. Not yet: MoE, VLM cross blocks and ``EncDecLM``.
+``paged_verify_step``; MoE FFNs (``models/moe.py``, the load-balance aux
+summed over layers) and a VLM's cross-attention blocks (a group of
+``cross_every`` self blocks, then cross block ``g`` under the site scope
+``cross_{g}``). Not yet: ``EncDecLM``.
 """
 from __future__ import annotations
 
@@ -23,9 +27,11 @@ from repro_torch.policy import OpKind, plan_segments, site_scope
 from repro_torch.runtime.device import resolve_device
 
 from .common import ArchConfig
-from .layers import embed, mlp, norm, self_attention, unembed
+from .layers import (cross_attention, embed, mlp, norm, self_attention,
+                     unembed)
 from .module import (Ctx, init_params, layer_slice, lecun_init, normal_init,
                      ones_init, zeros_init)
+from .moe import moe_ffn
 
 Params = Dict[str, Any]
 
@@ -52,7 +58,20 @@ def decoder_block_sites(cfg: ArchConfig, i: int, prefix: str = "decoder"):
     """Every contraction site of decoder layer ``i``: the paths the block
     produces (Ctx scopes + dense leaf names)."""
     base = f"{prefix}/layer_{i}"
-    return attn_sites(f"{base}/attn") + mlp_sites(cfg, f"{base}/ffn")
+    sites = attn_sites(f"{base}/attn")
+    if cfg.n_experts:
+        names = ("w_in", "w_gate", "w_out") if cfg.act in ("swiglu", "geglu") \
+            else ("w_in", "w_out")
+        sites += [(f"{base}/ffn/{n}", OpKind.MOE_EXPERT) for n in names]
+    else:
+        sites += mlp_sites(cfg, f"{base}/ffn")
+    return sites
+
+
+def clip_segments(segments, lo: int, hi: int):
+    """Intersect policy segments with the layer range [lo, hi)."""
+    return tuple((max(a, lo), min(b, hi))
+                 for a, b in segments if a < hi and b > lo)
 
 
 # ---------------------------------------------------------------------------
@@ -61,22 +80,39 @@ def decoder_block_sites(cfg: ArchConfig, i: int, prefix: str = "decoder"):
 
 def decoder_block(ctx: Ctx, cfg: ArchConfig, x, *, positions, cache=None,
                   causal=True):
-    """Pre-norm self-attention + dense FFN. Returns (x, cache)."""
+    """Pre-norm self-attention + FFN (dense or MoE). Returns (x, cache,
+    aux): the MoE load-balance loss, 0.0 for a dense FFN."""
     use_bias = cfg.norm == "layernorm"  # starcoder2/whisper-style
     with ctx.scope("attn"):
         h, new_cache = self_attention(
             ctx, norm(ctx, "ln1", x, cfg), cfg, positions=positions,
             cache=cache, causal=causal, use_bias=use_bias)
     x = x + h
+    aux = 0.0
     with ctx.scope("ffn"):
-        x = x + mlp(ctx, norm(ctx, "ln2", x, cfg), cfg, use_bias=use_bias)
-    return x, new_cache
+        y = norm(ctx, "ln2", x, cfg)
+        if cfg.n_experts:
+            h, aux = moe_ffn(ctx, y, cfg)
+        else:
+            h = mlp(ctx, y, cfg, use_bias=use_bias)
+    return x + h, new_cache, aux
+
+
+def cross_block(ctx: Ctx, cfg: ArchConfig, x, kv_src):
+    """Cross-attention block (VLM / whisper decoder insert)."""
+    with ctx.scope("xattn"):
+        h = cross_attention(ctx, norm(ctx, "ln1", x, cfg), kv_src, cfg)
+    x = x + h
+    with ctx.scope("ffn"):
+        x = x + mlp(ctx, norm(ctx, "ln2", x, cfg), cfg)
+    return x
 
 
 def run_policy_segments(layer_fn, stacked_params: Params, x, *, segments,
                         cache: Optional[Params] = None,
                         prefix: str = "layer"):
-    """Run ``x`` through the layer stack, segment by segment.
+    """Run ``x`` through the layer stack, segment by segment; returns (x,
+    the sum of the layers' aux losses).
 
     ``segments`` are (lo, hi) layer ranges (plan_segments). Each segment runs
     under the site scope ``{prefix}_{lo}`` — per-depth rules resolve against
@@ -85,38 +121,45 @@ def run_policy_segments(layer_fn, stacked_params: Params, x, *, segments,
     stacked params (and of the stacked cache, whose rows are views, so
     in-place updates land in the caller's cache).
     """
+    aux = 0.0
     for lo, hi in segments:
         with site_scope(f"{prefix}_{lo}", repeat=hi - lo):
             for i in range(lo, hi):
                 c = None if cache is None else layer_slice(cache, i)
-                x, _ = layer_fn(Ctx(layer_slice(stacked_params, i)), x, c)
-    return x
+                x, _, a = layer_fn(Ctx(layer_slice(stacked_params, i)), x, c)
+                aux = aux + a
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
-# Decoder-only LM (dense)
+# Decoder-only LM (dense + MoE + VLM)
 # ---------------------------------------------------------------------------
 
 class DecoderLM:
-    """Dense decoder LM: ``init``, ``forward``, slot-cache generation and the
-    paged serving steps.
+    """Dense / MoE / VLM decoder LM: ``init``, ``forward``, slot-cache
+    generation and the paged serving steps (not for a VLM, as in the
+    reference).
 
     ``device`` is where :meth:`init`, :meth:`init_cache` and
     :meth:`init_paged_cache` allocate; it defaults to the card.
     """
 
     def __init__(self, cfg: ArchConfig, device="cuda"):
-        if cfg.n_experts or cfg.cross_every or cfg.family not in ("dense",):
+        if cfg.family not in ("dense", "moe", "vlm"):
             raise NotImplementedError(
-                f"{cfg.name}: only dense decoder LMs are ported yet "
-                f"(family={cfg.family!r}, n_experts={cfg.n_experts}, "
-                f"cross_every={cfg.cross_every})")
+                f"{cfg.name}: family {cfg.family!r} is not a decoder-only "
+                "transformer ported to DecoderLM")
         self.cfg = cfg
+        self.is_vlm = cfg.cross_every > 0
         self.device = resolve_device(device)
         # maximal layer runs with identical resolved numerics
         self.segments = plan_segments(
             cfg.approx_policy,
             functools.partial(decoder_block_sites, cfg), 0, cfg.n_layers)
+
+    @property
+    def n_cross(self) -> int:
+        return self.cfg.n_layers // self.cfg.cross_every if self.is_vlm else 0
 
     # -- init ------------------------------------------------------------
     def param_specs(self) -> Dict[str, tuple]:
@@ -135,26 +178,41 @@ class DecoderLM:
         use_bias = cfg.norm == "layernorm"
         gated = cfg.act in ("swiglu", "geglu")
 
-        def block(scope, ln, mats):
-            specs[f"blocks/{scope}/{ln}_scale"] = ((L, d), "float32",
-                                                    ones_init())
+        def block(stack, n, scope, ln, mats):
+            pre = f"{stack}/{scope}"
+            specs[f"{pre}/{ln}_scale"] = ((n, d), "float32", ones_init())
             if cfg.norm == "layernorm":
-                specs[f"blocks/{scope}/{ln}_bias"] = ((L, d), "float32",
-                                                       zeros_init())
-            for name, d_in, d_out, bias in mats:
-                specs[f"blocks/{scope}/{name}"] = ((L, d_in, d_out), pd,
-                                                   lecun_init())
+                specs[f"{pre}/{ln}_bias"] = ((n, d), "float32", zeros_init())
+            for name, shape, dtype, bias in mats:
+                specs[f"{pre}/{name}"] = ((n, *shape), dtype, lecun_init())
                 if bias:
-                    specs[f"blocks/{scope}/{name}_b"] = ((L, d_out), pd,
-                                                         zeros_init())
+                    specs[f"{pre}/{name}_b"] = ((n, shape[-1]), pd,
+                                                zeros_init())
 
-        block("attn", "ln1", [("wq", d, cfg.q_dim, use_bias),
-                              ("wk", d, cfg.kv_dim, use_bias),
-                              ("wv", d, cfg.kv_dim, use_bias),
-                              ("wo", cfg.q_dim, d, use_bias)])
-        block("ffn", "ln2", [("wi", d, cfg.d_ff, use_bias)]
-              + ([("wg", d, cfg.d_ff, False)] if gated else [])
-              + [("wo", cfg.d_ff, d, use_bias)])
+        def attn(bias):
+            return [("wq", (d, cfg.q_dim), pd, bias),
+                    ("wk", (d, cfg.kv_dim), pd, bias),
+                    ("wv", (d, cfg.kv_dim), pd, bias),
+                    ("wo", (cfg.q_dim, d), pd, bias)]
+
+        def ffn(bias):
+            return ([("wi", (d, cfg.d_ff), pd, bias)]
+                    + ([("wg", (d, cfg.d_ff), pd, False)] if gated else [])
+                    + [("wo", (cfg.d_ff, d), pd, bias)])
+
+        block("blocks", L, "attn", "ln1", attn(use_bias))
+        if cfg.n_experts:
+            e, ff = cfg.n_experts, cfg.expert_ff
+            block("blocks", L, "ffn", "ln2",
+                  [("router", (d, e), "float32", False),
+                   ("w_in", (e, d, ff), pd, False)]
+                  + ([("w_gate", (e, d, ff), pd, False)] if gated else [])
+                  + [("w_out", (e, ff, d), pd, False)])
+        else:
+            block("blocks", L, "ffn", "ln2", ffn(use_bias))
+        if self.is_vlm:  # cross blocks carry no biases
+            block("cross_blocks", self.n_cross, "xattn", "ln1", attn(False))
+            block("cross_blocks", self.n_cross, "ffn", "ln2", ffn(False))
         return specs
 
     def init(self, seed: int = 0) -> Params:
@@ -167,9 +225,35 @@ class DecoderLM:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return init_params(self.param_specs(), gen, self.device)
 
+    def _layers(self, params: Params, x, layer_fn, cache=None,
+                image_embeds=None):
+        """The layer stack under the ``decoder`` scope: the policy segments
+        in one run, or for a VLM in groups of ``cross_every`` layers, each
+        followed by its cross block against ``image_embeds``. Returns (x,
+        the summed aux loss: a tensor for an MoE, else 0.0)."""
+        cfg = self.cfg
+        if not self.is_vlm:
+            x, aux = run_policy_segments(layer_fn, params["blocks"], x,
+                                         segments=self.segments, cache=cache)
+        else:
+            img = image_embeds.to(x.dtype)
+            per, aux = cfg.cross_every, 0.0
+            for g in range(self.n_cross):
+                x, a = run_policy_segments(
+                    layer_fn, params["blocks"], x, cache=cache,
+                    segments=clip_segments(self.segments, g * per,
+                                           (g + 1) * per))
+                aux = aux + a
+                with site_scope(f"cross_{g}"):
+                    x = cross_block(Ctx(layer_slice(params["cross_blocks"], g)),
+                                    cfg, x, img)
+        return x, aux
+
     # -- forward (train / prefill) ----------------------------------------
     def forward(self, params: Params, batch: Dict[str, torch.Tensor]):
-        """tokens (B, S) -> (logits (B, S, V), aux 0.0)."""
+        """tokens (B, S) (and, for a VLM, ``image_embeds`` (B, N, d)) ->
+        (logits (B, S, V), aux: the MoE load-balance loss summed over the
+        layers, 0.0 without experts)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         s = tokens.shape[1]
@@ -181,12 +265,13 @@ class DecoderLM:
 
         with site_scope("decoder"):
             x = embed(ctx, tokens, cfg)
-            x = run_policy_segments(layer_fn, params["blocks"], x,
-                                    segments=self.segments)
+            x, aux = self._layers(params, x, layer_fn,
+                                  image_embeds=batch.get("image_embeds"))
             x = norm(ctx, "final_ln", x, cfg)
             logits = unembed(ctx, x, cfg)
-        return logits, torch.zeros((), dtype=torch.float32,
-                                   device=tokens.device)
+        if not torch.is_tensor(aux):  # no experts: the reference's 0.0
+            aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        return logits, aux
 
     # -- KV cache ----------------------------------------------------------
     def init_cache(self, batch_size: int, max_seq: int):
@@ -212,12 +297,12 @@ class DecoderLM:
         return cache
 
     def _cached_forward(self, params: Params, tokens: torch.Tensor, cache,
-                        positions, pos):
+                        positions, pos, image_embeds=None):
         """Embed -> cached layer stack -> logits. ``positions`` feeds rope
         and attention masking; ``pos`` is the cache write offset, a scalar
         (shared) or a (B,) vector (per-slot cache). The cache's ``k``/``v``
         (and ``abs_pos``) are written in place; returns (logits, those
-        leaves)."""
+        leaves). A VLM's cross blocks attend to ``image_embeds``."""
         cfg = self.cfg
         ctx = Ctx(params)
         layer_cache = {"k": cache["k"], "v": cache["v"]}
@@ -230,13 +315,14 @@ class DecoderLM:
 
         with site_scope("decoder"):
             x = embed(ctx, tokens, cfg)
-            x = run_policy_segments(layer_fn, params["blocks"], x,
-                                    segments=self.segments, cache=layer_cache)
+            x, _ = self._layers(params, x, layer_fn, cache=layer_cache,
+                                image_embeds=image_embeds)
             x = norm(ctx, "final_ln", x, cfg)
             logits = unembed(ctx, x, cfg)
         return logits, layer_cache
 
-    def decode_step(self, params: Params, tokens: torch.Tensor, cache):
+    def decode_step(self, params: Params, tokens: torch.Tensor, cache,
+                    image_embeds: Optional[torch.Tensor] = None):
         """tokens (B, 1). Returns (logits (B, 1, V), the cache with ``pos``
         advanced by one).
 
@@ -247,10 +333,11 @@ class DecoderLM:
         pos = cache["pos"]
         positions = pos[:, None] if pos.dim() == 1 else pos.reshape(1)
         logits, new_lc = self._cached_forward(params, tokens, cache,
-                                              positions, pos)
+                                              positions, pos, image_embeds)
         return logits, dict(new_lc, pos=pos + 1)
 
-    def prefill(self, params: Params, tokens: torch.Tensor, cache):
+    def prefill(self, params: Params, tokens: torch.Tensor, cache,
+                image_embeds: Optional[torch.Tensor] = None):
         """Batched prompt ingestion: one forward writes the prompt K/V into
         the cache and returns full logits. tokens (B, S); right-padded
         prompts are fine (a pad entry is overwritten by decode before its
@@ -268,7 +355,7 @@ class DecoderLM:
         s = tokens.shape[1]
         positions = pos + torch.arange(s, device=pos.device)
         logits, new_lc = self._cached_forward(params, tokens, cache,
-                                              positions, pos)
+                                              positions, pos, image_embeds)
         return logits, dict(new_lc, pos=pos + s)
 
     # -- paged KV cache (block tables; repro_torch.serve) --------------------
@@ -281,6 +368,9 @@ class DecoderLM:
             raise ValueError(
                 f"paged KV cache needs window=0 (got window={cfg.window}: "
                 "ring buffers roll in place, pages are freed whole)")
+        if self.is_vlm:
+            raise NotImplementedError(
+                "paged serving does not cover VLM cross-attention blocks")
         cells = num_blocks * block_size
         kshape = (cfg.n_layers, cells + 1, cfg.kv_heads, cfg.head_dim)
         dt = torch_dtype(cfg.compute_dtype)
@@ -329,8 +419,8 @@ class DecoderLM:
 
         with site_scope("decoder"):
             x = embed(ctx, tokens, cfg)
-            x = run_policy_segments(layer_fn, params["blocks"], x,
-                                    segments=self.segments, cache=pool)
+            x, _ = run_policy_segments(layer_fn, params["blocks"], x,
+                                       segments=self.segments, cache=pool)
             x = norm(ctx, "final_ln", x, cfg)
             logits = unembed(ctx, x, cfg)
         return logits, pool

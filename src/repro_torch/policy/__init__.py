@@ -12,8 +12,8 @@ from .dispatch import (SiteEvent, attention_kernel, clear_log,
                        effective_attn_config, energy_per_mult_pj,
                        estimated_energy_uj, kernel_stats, make_dot,
                        matmul_kernel, observe_sites, policy_conv2d,
-                       policy_dot, resolution_log, resolve_site, site_report,
-                       validate_for_dtype)
+                       policy_dot, policy_expert_matmul, resolution_log,
+                       resolve_site, site_report, validate_for_dtype)
 from .policy import (EXACT, ApproxPolicy, Rule, describe_config,
                      layer_signature, parse_config, parse_policy,
                      plan_segments)
@@ -23,7 +23,8 @@ __all__ = [
     "ApproxPolicy", "Rule", "OpKind", "EXACT",
     "parse_policy", "parse_config", "describe_config",
     "site_scope", "current_path", "current_prefix",
-    "make_dot", "policy_dot", "policy_conv2d", "resolve_site",
+    "make_dot", "policy_dot", "policy_conv2d", "policy_expert_matmul",
+    "resolve_site",
     "validate_for_dtype", "observe_sites", "SiteEvent", "energy_per_mult_pj",
     "site_report", "resolution_log", "estimated_energy_uj",
     "kernel_stats", "clear_log", "matmul_kernel",

@@ -2,7 +2,8 @@
 
 The single injection point between models and the DAISM GEMM:
 
-* :func:`policy_dot` and :func:`policy_conv2d` are what models call:
+* :func:`policy_dot`, :func:`policy_conv2d` and
+  :func:`policy_expert_matmul` are what models call:
   ``policy_dot(policy, x, w, name=..., kind=...)`` resolves the site under
   the ambient :mod:`~repro_torch.policy.sites` scope and runs it;
   :func:`make_dot` binds one policy into such a ``dot`` callable.
@@ -213,8 +214,9 @@ def estimated_energy_uj(policy: ApproxPolicy) -> Tuple[float, float]:
 
 @functools.lru_cache(maxsize=None)
 def matmul_kernel(cfg: DaismConfig) -> Callable:
-    """One 2-D approximate matmul callable per distinct resolved config."""
-    from repro_torch.core.gemm import daism_matmul
+    """One 2-D approximate matmul callable per distinct resolved config;
+    its ``experts`` attribute runs (E, C, K) @ (E, K, N) expert batches."""
+    from repro_torch.core.gemm import daism_expert_matmul, daism_matmul
 
     _STATS["kernel_builds"] += 1
 
@@ -222,6 +224,12 @@ def matmul_kernel(cfg: DaismConfig) -> Callable:
         _STATS["kernel_calls"] += 1
         return daism_matmul(a, w, cfg)
 
+    def experts(x, w):
+        # one call for all the experts: the reference vmaps ``kernel``
+        _STATS["kernel_calls"] += 1
+        return daism_expert_matmul(x, w, cfg)
+
+    kernel.experts = experts
     return kernel
 
 
@@ -315,6 +323,25 @@ def policy_dot(policy: ApproxPolicy, x, w, *, name: str,
         return x @ w.to(x.dtype)
     out = matmul_kernel(cfg)(x.reshape(-1, k), w)
     return out.reshape(*x.shape[:-1], n).to(x.dtype)
+
+
+def policy_expert_matmul(policy: ApproxPolicy, x, w, *, name: str,
+                         record: bool = True):
+    """(E, C, d) x (E, d, f) -> (E, C, f) batched expert GEMM.
+
+    The site is an ``OpKind.MOE_EXPERT`` with ``macs = E*C*d*f`` and the
+    dims of one expert's product ``(C, d, f)``. Exact sites run the plain
+    batched product; approximate sites run the DAISM GEMM once for every
+    expert (one kernel launch on the ``pallas`` backend, ``x`` may be an
+    expert-broadcast view). The output has ``x``'s dtype.
+    """
+    e, c, d = x.shape
+    f = w.shape[-1]
+    cfg = resolve_site(policy, name, OpKind.MOE_EXPERT, x.dtype,
+                       record=record, macs=e * c * d * f, dims=(c, d, f))
+    if cfg.exact:
+        return torch.bmm(x, w.to(x.dtype))
+    return matmul_kernel(cfg).experts(x, w).to(x.dtype)
 
 
 def make_dot(policy: ApproxPolicy) -> Callable:

@@ -92,7 +92,7 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
                                   variant=Variant.PC3_TR)
     with pytest.raises(ValueError, match="tiles of 128"):
         fa.flash_attention(q, q, q, block_k=64)
-    big = torch.zeros((1, 128, 256), dtype=torch.bfloat16, device=cuda)
+    big = torch.zeros((1, 128, 264), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention_kernel(big, big, big)
 
@@ -334,3 +334,134 @@ def test_checkpoint_of_cuda_tensors_roundtrips_bit_for_bit(cuda, tmp_path):
         if a.dtype == torch.bfloat16:
             a, b = a.view(torch.int16), b.view(torch.int16)
         assert torch.equal(a, b), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [136, 192, 200, 256])
+@pytest.mark.parametrize("variant", [None, "pc3_tr", "fla", "hla", "pc2",
+                                     "pc3", "pc2_tr"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_at_large_head_dims_matches_plain_version(cuda, d, variant,
+                                                        causal):
+    """Head dims past 128 (Nemotron-4's 192, Gemma's 256, and two that pad
+    to them): exact bf16 on the tensor-core kernel's 64-key tiles within
+    the JAX suite's bound and one bf16 rounding, the six approximate
+    variants within 1e-3 + 2**-6 |plain| (the bounds of
+    test_flash_kernel_matches_plain_version); MQA causal at a ragged S =
+    200, GQA non-causal at Sq = 100, Skv = 300."""
+    b, sq, skv, h, kh = (1, 200, 200, 4, 1) if causal else (2, 100, 300, 4, 2)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q = torch.randn((b, sq, h, d), generator=g, device=cuda).to(torch.bfloat16)
+    k = torch.randn((b, skv, kh, d), generator=g, device=cuda).to(torch.bfloat16)
+    v = torch.randn((b, skv, kh, d), generator=g, device=cuda).to(torch.bfloat16)
+    var = variant and Variant(variant)
+    before = fa.launches
+    got = fa.flash_attention_bhsd(q, k, v, causal=causal, variant=var)
+    ref = fa.flash_attention_bhsd_plain(q, k, v, causal=causal, variant=var)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    assert got.shape == q.shape and bool(torch.isfinite(got).all())
+    err = (got.float() - ref.float()).abs()
+    rtol, atol = (2e-2, 2e-3) if var is None else (2.0**-6, 1e-3)
+    assert bool((err <= atol + rtol * ref.float().abs()).all())
+    if var is None:
+        one_rounding = (2.0**-7 * ref.float().abs()
+                        + 2.0**-16 * v.float().abs().max())
+        assert bool((err <= one_rounding).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [192, 256])
+def test_f32_flash_at_large_head_dims_matches_plain_version(cuda, d):
+    """f32 exact (the integer-path kernel's fmaf mode) at D = 192 and 256
+    within the JAX suite's exact bound."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn((1, 150, 2, d), generator=g, device=cuda)
+               for _ in range(3))
+    for causal in (True, False):
+        got = fa.flash_attention_bhsd(q, k, v, causal=causal)
+        ref = fa.flash_attention_bhsd_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = (got - ref).abs()
+        assert bool((err <= 2e-3 + 2e-2 * ref.abs()).all())
+
+
+# (E, C, K, N): Qwen3-MoE-like and DBRX-like narrow cases, a ragged one, a
+# single chunk and one row
+EXPERT_SHAPES = [(8, 4, 512, 384), (4, 128, 256, 320), (3, 16, 700, 96),
+                 (5, 1, 64, 130), (2, 37, 300, 130)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", EXPERT_SHAPES)
+@pytest.mark.parametrize("variant", ["fla", "hla", "pc3_tr"])
+@pytest.mark.parametrize("shared_x", [False, True])
+def test_expert_kernel_bit_identical_to_per_expert_launches(cuda, shape,
+                                                            variant,
+                                                            shared_x):
+    """One launch for E experts equals E 2-D launches bit for bit, on the
+    tile path, the split-K path and the default choice; ``shared_x``
+    passes one (C, K) operand to every expert as an ``expand``ed view
+    (expert stride 0), as the dense MoE does. The first expert also equals
+    daism_matmul_ordered."""
+    e, c, k, n = shape
+    var = Variant(variant)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    if shared_x:
+        x = torch.randn((c, k), generator=g, device=cuda).to(
+            torch.bfloat16)[None].expand(e, c, k)
+    else:
+        x = torch.randn((e, c, k), generator=g, device=cuda).to(torch.bfloat16)
+    w = torch.randn((e, k, n), generator=g, device=cuda).to(torch.bfloat16)
+    ref = torch.stack([dm.daism_matmul_kernel(x[i].contiguous(), w[i], var)
+                       for i in range(e)])
+    before = dm.launches
+    for path in ("tile", "splitk", None):
+        got = dm._launch_experts(x, w, var, path)
+        torch.cuda.synchronize()
+        assert got.shape == (e, c, n)
+        assert torch.equal(_bits(got), _bits(ref)), path
+    assert dm.launches == before + 3
+    ordered = dm.daism_matmul_ordered(x[0].contiguous(), w[0], var)
+    assert torch.equal(_bits(ref[0]), _bits(ordered))
+
+
+@pytest.mark.cuda
+def test_expert_kernel_matches_plain_and_refuses_exact(cuda):
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn((3, 8, 200), generator=g, device=cuda).to(torch.bfloat16)
+    w = torch.randn((3, 200, 72), generator=g, device=cuda).to(torch.bfloat16)
+    got = dm.daism_matmul_experts_kernel(x, w, Variant.PC3_TR)
+    ref = dm.daism_matmul_experts_plain(x, w, Variant.PC3_TR)
+    torch.cuda.synchronize()
+    bound = 4e-4 * (x.double().abs() @ w.double().abs()) + 1e-6
+    assert bool(((got.double() - ref.double()).abs() <= bound).all())
+    with pytest.raises(ValueError, match="approximate"):
+        dm.daism_matmul_experts_kernel(x, w, Variant.EXACT)
+    with pytest.raises(ValueError, match="row-major"):
+        dm.daism_matmul_experts_kernel(x.transpose(1, 2).contiguous()
+                                       .transpose(1, 2), w)
+
+
+@pytest.mark.cuda
+def test_tied_lm_head_bits_unchanged_by_the_hoisted_transpose(cuda):
+    """A tied-embedding model's logits through the kept ``embedding.T``
+    equal, bit for bit, those through a fresh transpose at every call, on
+    the kernel (``*=pc3_tr:pallas``) and exact."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+
+    for spec in ("*=pc3_tr:pallas", "*=exact"):
+        cfg = get_config("gemma_2b").smoke(n_layers=2, vocab=512).with_policy(
+            spec)
+        model = build_model(cfg, device=cuda)
+        params = model.init(0)
+        toks = torch.randint(0, 512, (2, 16), device=cuda,
+                             generator=torch.Generator(device=cuda).manual_seed(0))
+        with torch.no_grad():
+            first, _ = model.forward(params, {"tokens": toks})
+            kept, _ = model.forward(params, {"tokens": toks})
+            del params["embedding"]._repro_lm_head
+            fresh, _ = model.forward(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        assert torch.equal(first, kept) and torch.equal(first, fresh), spec

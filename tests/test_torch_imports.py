@@ -47,6 +47,9 @@ def _run(code, cwd=ROOT, env_extra=None):
 def test_every_port_module_imports_without_jax():
     mods = _port_modules()
     assert len(mods) >= 25
+    assert {"repro_torch.models.moe", "repro_torch.configs.gemma_2b",
+            "repro_torch.configs.qwen3_moe_235b",
+            "repro_torch.configs.llama_3_2_vision_11b"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"

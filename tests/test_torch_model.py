@@ -211,6 +211,6 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="cuda"):
         tbuild(cfg)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        tget("gemma_2b")
+        tget("xlstm_1_3b")
     with pytest.raises(ValueError, match="unknown arch"):
         tget("gpt5")

@@ -19,9 +19,11 @@ import repro.serve as JS  # noqa: E402
 import repro_torch.serve as TS  # noqa: E402
 from repro.configs import get_config as jget  # noqa: E402
 from repro.models.registry import build_model as jbuild  # noqa: E402
+from repro.policy import clear_log as jclear_log  # noqa: E402
 from repro_torch.configs import get_config as tget  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.models.registry import build_model as tbuild  # noqa: E402
+from repro_torch.policy import clear_log as tclear_log  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -87,7 +89,15 @@ def _engine(mod, served, kw):
 
 @pytest.fixture(scope="module")
 def runs(served):
-    """Each scenario once through each engine (the JAX runs compile)."""
+    """Each scenario once through each engine (the JAX runs compile).
+
+    Both packages' resolution logs are cleared first: they are global per
+    policy value, and another module in the same worker (the reference's
+    tests/test_models.py runs every id's smoke model under the default
+    exact policy, the ``base`` group's) would leave other models' sites in
+    one package's log only."""
+    jclear_log()
+    tclear_log()
     out = {}
     for mod in (JS, TS):
         for name, (kw, reqs) in SCENARIOS.items():
