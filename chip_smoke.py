@@ -6,7 +6,8 @@
 Builds the CUDA kernels from the sources in ``src/repro_torch/csrc``, holds
 each against its plain PyTorch version on the card, drives the port's main
 paths at TinyLlama-1.1B's published width (random bf16 weights from a seed)
-and then the rest of the decoder-only zoo (phase 12):
+then the rest of the decoder-only zoo (phase 12) and Whisper, xLSTM and
+Zamba (phase 13):
 the paged server through two policy tiers, the full-sequence
 ``prefill_step`` with and without the flash-attention kernel, the
 ``train_step`` with straight-through and approximate backward, slot-cache
@@ -145,6 +146,28 @@ and prints the kernels' times beside their bounds. Phases:
               with the large-D kernels' ptxas registers and spills.
               Every model's GEMM launches equal its sites, flash's its
               layers.
+13. zoo rest — Whisper-large-v3, xLSTM-1.3B and Zamba2-1.2B at published
+              widths and full depth, random bf16 weights: (a) Whisper (B =
+              1, 1500 seeded frames, S = 448) forward under phase 5's
+              policies with flash on every attention site (96 launches:
+              encoder self, decoder self and cross), exact flash against
+              jnp attention as there, encode + 8 decode_steps against the
+              forward, flash alone at (1500, 1500) and (448, 1500)
+              non-causal against the plain version with the controls,
+              beside the bound and SDPA; the GEMM kernel at every new
+              shape of the three models (Whisper's M = 1500 and S = 448
+              with the ragged N = 51866 head, xLSTM's N = 12, Zamba's
+              Mamba and shared-block GEMMs) against the plain version; (b)
+              xLSTM (42 mLSTM + 6 sLSTM) and (c) Zamba (38 Mamba-2 blocks,
+              6 shared sites) forwards at S = 128 with PC3_TR and exact
+              GEMMs, 16 decode_steps from an empty cache against the
+              forward (241 and 195 GEMM launches a step), Zamba's ring
+              cache (window 8) card vs CPU; (d) each model cut in depth,
+              on the card (kernels) against the CPU (plain versions), f32
+              exact and bf16 PC3_TR over 16 tokens, each with a greedy
+              token clear of the deviation; PC3_TR's bound is below the
+              deviation of the card's exact products, which must break it.
+              GEMM launches equal the sites of every forward and step.
 
 Every check raises on failure and nothing is caught (checks 3c, 6 and 9
 expect their errors), so any failure exits non-zero before the final line. TF32 is
@@ -359,6 +382,73 @@ ZOO_FLASH_CONTROL = (1, 256, 256, 8, 2, 192)
 ZOO_FLASH_TIMED = (("gemma_2b", (1, 2048, 2048, 8, 1, 256), 8),
                    ("nemotron_4_340b", (1, 2048, 2048, 96, 8, 192), 12))
 
+# phase 13: the rest of the zoo at published widths and full depth, random
+# bf16 weights. (a) Whisper-large-v3, B = 1: 1500 frames from a seeded
+# generator, the decoder at its 448-token limit; phase 5's policies with
+# the flash rule on every ATTN_QK site (encoder self, decoder self and
+# cross attention: 3 launches a layer pair), then encode + 8 decode_steps
+# against the forward's first 8 positions
+WHISPER_SEQ, WHISPER_STEPS = 448, 8
+WHISPER_POLICIES = tuple(
+    (label, spec.replace("*/attn/kernel=", "*/kernel="))
+    for label, spec in PREFILL_POLICIES)
+# flash alone at Whisper's two shapes (B, Sq, Skv, H, KH, D), non-causal
+WHISPER_FLASH = (("encoder self", (1, 1500, 1500, 20, 20, 64)),
+                 ("decoder cross", (1, 448, 1500, 20, 20, 64)))
+# the GEMM kernel at phase 13's new shapes (label, M, K, N), PC3_TR: the
+# Whisper encoder's and the cross K/V's M = 1500, its decoder's at S = 448
+# (the head's N = 51866 ends in a ragged tile), xLSTM's projections and gate
+# (N = 12), Zamba's in/out projections, B/C (N = 128) and dt (N = 64), and
+# its shared block's, at a forward's S = 128 and a decode step's M = 1
+ZOO_REST_GEMMS = (("whisper q/k/v/o, cross k/v", 1500, 1280, 1280),
+                  ("whisper wi", 1500, 1280, 5120),
+                  ("whisper ffn/wo", 1500, 5120, 1280),
+                  ("whisper decoder q/k/v/o", 448, 1280, 1280),
+                  ("whisper decoder wi", 448, 1280, 5120),
+                  ("whisper decoder ffn/wo", 448, 5120, 1280),
+                  ("whisper lm_head", 448, 1280, 51866),
+                  ("xlstm q/k/v/o, zamba shared", 128, 2048, 2048),
+                  ("xlstm wgate", 128, 2048, 12),
+                  ("xlstm wgate, decode", 1, 2048, 12),
+                  ("zamba bc_proj", 128, 4096, 128),
+                  ("zamba bc_proj, decode", 1, 4096, 128),
+                  ("zamba dt_proj", 128, 4096, 64),
+                  ("zamba dt_proj, decode", 1, 4096, 64),
+                  ("zamba in_proj, shared wi", 128, 2048, 8192),
+                  ("zamba out_proj", 128, 4096, 2048),
+                  ("zamba shared ffn/wo", 128, 8192, 2048))
+# (b) xLSTM-1.3B and (c) Zamba2-1.2B, B = 1: a forward at S = 128 (the
+# recurrences are a loop a token, paced by the host) and 16 decode_steps
+# from an empty cache over the same tokens; Zamba's ring cache at window
+# 8 (2 layers, the shared block after both), 16 steps in f32, card vs CPU
+RNN_SEQ, RNN_STEPS = 128, 16
+ZAMBA_RING, ZAMBA_RING_STEPS = dict(n_layers=2, shared_attn_every=2,
+                                    window=8), 16
+# (d) card (kernels) vs CPU (plain versions) at full width: depth cut so
+# each block kind runs once (Whisper 2 + 2 layers; xLSTM 8: 7 mLSTM and
+# one sLSTM; Zamba 7: one shared site and a tail block), Whisper's frames
+# cut to 4, since the CPU's plain DAISM GEMM takes ~1 s per 3e7 products;
+# f32 under *=exact and bf16 under *=pc3_tr:pallas (the kernel is
+# bfloat16-only), over 16 tokens each, at least one of whose greedy tokens
+# has a top-2 gap above the deviation (the CPU's time is mostly per GEMM,
+# not per row: S = 16 costs ~1.3x S = 4)
+ZOO_REST_CPU = {"whisper_large_v3": dict(enc_layers=2, n_layers=2,
+                                         enc_frames=4),
+                "xlstm_1_3b": dict(n_layers=8),
+                "zamba2_1_2b": dict(n_layers=7)}
+ZOO_REST_CPU_RUNS = (("*=exact", "float32", 16),
+                     ("*=pc3_tr:pallas", "bfloat16", 16))
+# (d)'s bf16 bound on max |card - CPU| / max |CPU| by model, set from
+# readings on an H100 (kernel / control: Whisper 0.0411 / 0.1694, xLSTM
+# 0.0493 / 0.2934, Zamba 0.0053 / 0.1277; PERF.md): about 2x the kernel's
+# deviation and below that of the control, the card under *=exact (exact
+# products) against the same CPU run, which must exceed the bound, so a
+# kernel that dropped the approximation would fail it. The kernel's own
+# deviation is the CPU's other summation order, rounded to bf16 at each
+# op and carried through approximate products in the next layers
+ZOO_REST_CPU_APPROX_REL = {"whisper_large_v3": 0.08, "xlstm_1_3b": 0.1,
+                           "zamba2_1_2b": 0.03}
+
 
 def gemm_rtol(k: int) -> float:
     return GEMM_RTOL * max(1.0, k / GEMM_RTOL_K)
@@ -453,13 +543,16 @@ def bound(variant: str, m: int, k: int, n: int):
     return byte_s * 1e3, "bytes", ops
 
 
-def flash_bound(variant: str, b: int, s: int, h: int, kh: int, d: int):
-    """(bound_ms, bound_by, ops) for causal (S, S) flash attention over
-    B x H heads: q, k, v and o read or written once (bf16), against the
-    work the inputs need, S (S + 1) / 2 score pairs a head with 2 D
-    products each (4 D flops exact, on the bf16 tensor cores)."""
-    pairs = b * h * s * (s + 1) // 2
-    nbytes = 2 * (2 * b * s * h * d + 2 * b * s * kh * d)
+def flash_bound(variant: str, b: int, s: int, h: int, kh: int, d: int,
+                skv: int = 0, causal: bool = True):
+    """(bound_ms, bound_by, ops) for flash attention over B x H heads, S
+    queries and ``skv`` keys (default S): q, k, v and o read or written
+    once (bf16), against the work the inputs need, S (S + 1) / 2 score
+    pairs a head causal (S x skv not) with 2 D products each (4 D flops
+    exact, on the bf16 tensor cores)."""
+    skv = skv or s
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * skv)
+    nbytes = 2 * (2 * b * s * h * d + 2 * b * skv * kh * d)
     if variant == "exact":
         ops = 4 * pairs * d
         op_s = ops / BF16_TENSOR_FLOPS
@@ -841,31 +934,21 @@ def serve_requests(vocab: int):
     return reqs
 
 
-def approx_launches_per_step(model) -> int:
-    """GEMM sites of one step that resolve to the kernel (an approximate
-    config on the ``pallas`` backend), by the model's policy segments."""
+def approx_launches_per_step(model, skip: str = "") -> int:
+    """GEMM launches of one forward of ``model`` that reach the kernel: the
+    sites of its site graph (``trace_site_graph`` on the meta device) whose
+    config is approximate on the ``pallas`` backend, each times the layers
+    its segment covers. Sites under the path prefix ``skip`` are left out
+    (``"encoder/"`` for a Whisper decode step, which runs the decoder
+    alone)."""
+    from repro_torch.analyze import trace_site_graph
     from repro_torch.core.config import Backend
-    from repro_torch.models.transformer import decoder_block_sites
     from repro_torch.policy import OpKind
 
-    cfg = model.cfg
-    pol = cfg.approx_policy
-
-    def on_kernel(path, kind):
-        c = pol.resolve(path, kind)
-        return not c.exact and c.backend is Backend.PALLAS
-
-    n = 0
-    for lo, hi in model.segments:
-        per_layer = sum(on_kernel(p, k) for p, k in decoder_block_sites(cfg, lo)
-                        if k is not OpKind.ATTN_QK)
-        n += (hi - lo) * per_layer
-    for g in range(getattr(model, "n_cross", 0)):  # a VLM's cross blocks
-        n += sum(on_kernel(f"decoder/cross_{g}/{scope}/{w}", OpKind.DENSE)
-                 for scope, names in (("xattn", ("wq", "wk", "wv", "wo")),
-                                      ("ffn", ("wi", "wg", "wo")))
-                 for w in names)
-    return n + on_kernel("decoder/lm_head", OpKind.LM_HEAD)
+    return sum(s.repeat for s in trace_site_graph(model.cfg).sites
+               if s.kind is not OpKind.ATTN_QK and not s.config.exact
+               and s.config.backend is Backend.PALLAS
+               and not (skip and s.path.startswith(skip)))
 
 
 def serve(device, cfg):
@@ -2660,14 +2743,14 @@ def zoo_flash(device, ptxas):
     return rows, max(errs["exact"], errs["approx"])
 
 
-def _flash_controls(outs, pc3_plain, what):
+def _flash_controls(outs, pc3_plain, what, tag="(g)"):
     """The exact and FLA kernels' outputs against the PC3_TR plain output
     must break the approximate bound (phase 7's controls)."""
     from repro_torch.core.config import Variant
 
     for other, got in outs.items():
         err, excess, bnd = flash_excess(got, pc3_plain, Variant.PC3_TR)
-        log(f"  (g) control at {what}: {other} kernel vs pc3_tr plain: max "
+        log(f"  {tag} control at {what}: {other} kernel vs pc3_tr plain: max "
             f"|diff| {err:.4g}, exceeds {bnd} by {excess:.4g}")
         if excess <= 0:
             raise SystemExit(f"flash control at {what}: the {other} kernel "
@@ -2684,6 +2767,406 @@ def zoo(device, ptxas):
     gemm_n += n
     recs["experts"] = zoo_experts(device)
     recs["flash"], recs["flash_err"] = zoo_flash(device, ptxas)
+    return recs, gemm_n, flash_n
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the rest of the zoo (Whisper, xLSTM, Zamba) at published widths
+# ---------------------------------------------------------------------------
+
+def _counted(fn, label, device, gemm, flash=0):
+    """Run ``fn`` with the kernels' counts set to 0 just before; they must
+    read ``gemm`` and ``flash`` just after. Returns (fn's result, its
+    seconds on the host clock after a sync)."""
+    from repro_torch.kernels import daism_matmul as dm
+    from repro_torch.kernels import flash_attention as fa
+
+    dm.launches = fa.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(device)
+    sec = time.perf_counter() - t0
+    if (dm.launches, fa.launches) != (gemm, flash):
+        raise SystemExit(f"{label}: daism_matmul launched {dm.launches} (the "
+                         f"sites imply {gemm}), flash {fa.launches} "
+                         f"(expected {flash})")
+    return out, sec
+
+
+def _finite_logits(logits, shape, label):
+    import torch
+
+    if tuple(logits.shape) != tuple(shape) or \
+            not bool(torch.isfinite(logits).all()):
+        raise SystemExit(f"{label}: logits not finite or shaped "
+                         f"{tuple(logits.shape)} (expected {tuple(shape)})")
+
+
+def _held(got, ref, lim, label, tag, min_clear=0):
+    """Hold logits against a reference: max |diff| / max |ref| within
+    ``lim`` and greedy tokens equal on every row whose top-2 gap exceeds
+    the deviation, of which there must be ``min_clear``. Returns the
+    relative deviation."""
+    rel, agree, clear_ok, n_clear = _logit_agreement(got, ref)
+    log(f"  {tag} {label}: max |diff| / max |ref| {rel:.4g} (bound {lim:g}); "
+        f"greedy tokens agree on {agree * 100:.2f}% of rows, on all "
+        f"{n_clear} rows whose top-2 gap exceeds the deviation: {clear_ok}")
+    if rel > lim or not clear_ok:
+        raise SystemExit(f"{tag} {label}: disagree beyond the bound")
+    if n_clear < min_clear:
+        raise SystemExit(f"{tag} {label}: {n_clear} rows have a top-2 gap "
+                         f"above the deviation (at least {min_clear} needed)")
+    return rel
+
+
+def zoo_whisper(device):
+    """(a): Whisper-large-v3 at full depth. Returns (records, GEMM
+    launches, flash launches)."""
+    import torch
+
+    from repro_torch.data import lm_batches
+    from repro_torch.launch.steps import build_artifacts
+
+    model, params = _zoo_model(device, "whisper_large_v3", None, GEN_POLICY)
+    cfg = model.cfg
+    gen = torch.Generator(device=device).manual_seed(18)
+    frames = torch.randn((1, cfg.enc_frames, cfg.d_model), generator=gen,
+                         device=device).to(torch.bfloat16)
+    tokens = torch.from_numpy(next(lm_batches(cfg.vocab, 1, WHISPER_SEQ,
+                                              seed=3))["tokens"]).to(device)
+    batch = {"tokens": tokens, "frames": frames}
+    shape = (1, WHISPER_SEQ, cfg.vocab)
+    flash_sites = cfg.enc_layers + 2 * cfg.n_layers
+    recs, logits, gemm_n, flash_n = {}, {}, 0, 0
+    for label, spec in WHISPER_POLICIES:
+        art = build_artifacts(cfg.with_policy(spec), device=device)
+        flash = flash_sites if ":flash" in spec else 0
+        want = approx_launches_per_step(art.model)
+        out, sec = _counted(lambda: art.prefill_step(params, batch),
+                            f"(a) whisper {label}", device, want, flash)
+        _finite_logits(out, shape, f"(a) whisper {label}")
+        gemm_n += want
+        flash_n += flash
+        logits[label] = out
+        recs[label] = sec * 1e3
+        log(f"  (a) whisper {label:27s} B=1, {cfg.enc_frames} frames, "
+            f"S={WHISPER_SEQ}: "
+            f"{sec * 1e3:9.1f} ms, {want} GEMM and {flash} flash launches "
+            "as the sites imply")
+    for (a, b), lim in ((("flash exact, exact GEMMs",
+                          "jnp attention, exact GEMMs"), PREFILL_EXACT_REL),
+                        (("flash exact", "jnp attention"), PREFILL_APPROX_REL)):
+        recs[f"{a} vs {b}"] = _held(logits[a], logits[b], lim,
+                                    f"{a!r} vs {b!r}", "(a)")
+    full = logits["jnp attention"]  # GEN_POLICY, as the decode below
+    del logits
+    # encode, then decode_steps from an empty cache over the same tokens
+    art = build_artifacts(cfg, device=device)
+    per_step = approx_launches_per_step(model, skip="encoder/")
+    with torch.no_grad():
+        enc, sec = _counted(lambda: model.encode(params, frames),
+                            "(a) whisper encode", device,
+                            approx_launches_per_step(model) - per_step)
+    gemm_n += approx_launches_per_step(model) - per_step
+    cache = art.init_cache(1, WHISPER_SEQ)
+    cache["enc"] = enc
+    outs, step_ms = [], []
+    for j in range(WHISPER_STEPS):
+        (lg, cache), st = _counted(
+            lambda: art.decode_step(params, tokens[:, j:j + 1], cache),
+            f"(a) whisper decode step {j}", device, per_step)
+        gemm_n += per_step
+        step_ms.append(st * 1e3)
+        outs.append(lg[:, 0])
+    got = torch.stack(outs, 1)
+    _finite_logits(got, (1, WHISPER_STEPS, cfg.vocab), "(a) whisper decode")
+    recs.update(encode_ms=sec * 1e3, step_ms_p50=sorted(step_ms)[
+        len(step_ms) // 2], step_launches=per_step, peak_gib=_peak_gib(device))
+    log(f"  (a) whisper encode {sec * 1e3:.1f} ms; {WHISPER_STEPS} "
+        f"decode_steps: {per_step} GEMM launches each as the sites imply "
+        f"({2 * cfg.n_layers} of them the cross K/V at M = "
+        f"{cfg.enc_frames}), step p50 {recs['step_ms_p50']:.2f} ms; peak "
+        f"{recs['peak_gib']:.2f} GiB")
+    recs["decode vs forward"] = _held(got, full[:, :WHISPER_STEPS],
+                                      PREFILL_APPROX_REL,
+                                      "decode_steps vs forward", "(a)")
+    del model, params, art, cache, full, got, enc, frames
+    _free(device)
+    return recs, gemm_n, flash_n
+
+
+def whisper_flash(device):
+    """(a): flash alone at Whisper's two shapes, exact and PC3_TR against
+    the plain version, the controls, times beside the bound and SDPA.
+    Returns (rows, max |kernel - plain|)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.config import Variant
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(19)
+    errs = {"exact": 0.0, "exact_over_1ulp": -1.0, "approx": 0.0,
+            "approx_over_2ulp": -1.0}
+    rows = []
+    for label, shape in WHISPER_FLASH:
+        b, sq, skv, h, kh, d = shape
+        q, k, v = _bhsd_inputs(gen, device, *shape)
+        qs, ks, vs = (t.repeat_interleave(h // t.shape[2], dim=2).transpose(
+            1, 2) for t in (q, k, v))
+        outs, plains = {}, {}
+        for name, var in (("exact", None), ("pc3_tr", Variant.PC3_TR),
+                          ("fla", Variant.FLA)):
+            ms, outs[name] = cuda_time_ms(lambda: fa.flash_attention_bhsd_kernel(
+                q, k, v, causal=False, variant=var), 3)
+            if name == "fla":
+                continue
+            plain_ms, plains[name] = cuda_time_ms(
+                lambda: fa.flash_attention_bhsd_plain(q, k, v, causal=False,
+                                                      variant=var),
+                1, warmup=0)
+            _flash_held(outs[name], plains[name], var,
+                        f"whisper {label} {shape} {name}", errs, v=v)
+            lib_ms = None
+            if var is None:
+                lib_ms, _ = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                    qs, ks, vs), 5)
+            b_ms, b_by, ops = flash_bound(name, b, sq, h, kh, d, skv=skv,
+                                          causal=False)
+            rows.append(dict(site=label, variant=name, shape=list(shape),
+                             ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=b_ms, bound_by=b_by))
+            lib = f"{lib_ms:.4f}" if lib_ms is not None else "-"
+            log(f"  (a) flash {name:6s} whisper {label} B={b} Sq={sq} "
+                f"Skv={skv} H={h} D={d} non-causal: kernel {ms:9.4f} ms, "
+                f"plain {plain_ms:9.1f} ms, SDPA {lib} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}), {b_ms / ms * 100:5.1f}% of bound")
+        _flash_controls({"exact": outs["exact"], "fla": outs["fla"]},
+                        plains["pc3_tr"], f"whisper {label} {shape}", "(a)")
+        del q, k, v, qs, ks, vs, outs, plains
+    log(f"  (a) flash at Whisper's shapes within the phase-3 bounds: max "
+        f"|kernel - plain| exact {errs['exact']:.4g} (largest excess over "
+        f"one bf16 rounding {errs['exact_over_1ulp']:.4g}), approximate "
+        f"{errs['approx']:.4g} (largest excess over 2**-6 |plain| "
+        f"{errs['approx_over_2ulp']:.4g})")
+    _free(device)
+    return rows, max(errs["exact"], errs["approx"])
+
+
+def rest_gemms(device):
+    """The GEMM kernel at ZOO_REST_GEMMS, PC3_TR: held against the plain
+    version (phase 3's bound) and timed beside its bound. Returns (rows,
+    max |kernel - plain|)."""
+    import torch
+
+    from repro_torch.kernels import daism_matmul as dm
+
+    gen = torch.Generator(device=device).manual_seed(20)
+    rows, max_err = [], 0.0
+    for label, m, k, n in ZOO_REST_GEMMS:
+        a = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+        w = torch.randn((k, n), generator=gen, device=device).to(torch.bfloat16)
+        ms, got = cuda_time_ms(lambda: dm.daism_matmul_kernel(a, w, "pc3_tr"),
+                               10)
+        plain_ms, ref = cuda_time_ms(lambda: dm.daism_matmul_plain(
+            a, w, "pc3_tr"), 1, warmup=0)
+        err, rel = gemm_held(got, ref, a, w, f"{label} ({m},{k},{n})")
+        max_err = max(max_err, err)
+        b_ms, b_by, _ = bound("pc3_tr", m, k, n)
+        rows.append(dict(site=label, m=m, k=k, n=n, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        log(f"  pc3_tr {label:27s} ({m:4d}, {k:4d}, {n:5d}): kernel "
+            f"{ms:8.4f} ms, plain {plain_ms:9.2f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}), {b_ms / ms * 100:5.1f}% of bound, |kernel - plain| "
+            f"{rel:.3g} (|a|@|w|)")
+        del a, w, got, ref
+    _free(device)
+    return rows, max_err
+
+
+def zoo_recurrent(device, arch):
+    """(b) / (c): xLSTM-1.3B or Zamba2-1.2B at full depth: forwards under
+    PC3_TR and exact GEMMs, decode_steps from an empty cache against the
+    forward. Returns (records, GEMM launches)."""
+    import torch
+
+    from repro_torch.data import lm_batches
+    from repro_torch.launch.steps import build_artifacts
+
+    tag = "(b)" if arch == "xlstm_1_3b" else "(c)"
+    model, params = _zoo_model(device, arch, None, GEN_POLICY)
+    cfg = model.cfg
+    tokens = torch.from_numpy(next(lm_batches(cfg.vocab, 1, RNN_SEQ, seed=4))[
+        "tokens"]).to(device)
+    recs, logits, gemm_n = {}, {}, 0
+    for label, spec in (("pc3_tr", GEN_POLICY), ("exact", "*=exact")):
+        art = build_artifacts(cfg.with_policy(spec), device=device)
+        want = approx_launches_per_step(art.model)
+        out, sec = _counted(lambda: art.prefill_step(params,
+                                                     {"tokens": tokens}),
+                            f"{tag} {arch} {label}", device, want)
+        _finite_logits(out, (1, RNN_SEQ, cfg.vocab), f"{tag} {arch}")
+        gemm_n += want
+        logits[label] = out
+        recs[f"{label}_ms"] = sec * 1e3
+        log(f"  {tag} {arch} forward B=1 S={RNN_SEQ} {label} GEMMs: "
+            f"{sec * 1e3:9.1f} ms, {want} GEMM launches as the sites imply")
+    rel, _, _, _ = _logit_agreement(logits["pc3_tr"], logits["exact"])
+    recs["pc3_tr_vs_exact"] = rel
+    log(f"  {tag} {arch} PC3_TR vs exact GEMMs: max |diff| / max |ref| "
+        f"{rel:.4g} (no bound: what the approximate products move)")
+    art = build_artifacts(cfg, device=device)
+    per_step = approx_launches_per_step(model)
+    cache = art.init_cache(1, RNN_STEPS)
+    outs, step_ms = [], []
+    for j in range(RNN_STEPS):
+        (lg, cache), st = _counted(
+            lambda: art.decode_step(params, tokens[:, j:j + 1], cache),
+            f"{tag} {arch} decode step {j}", device, per_step)
+        gemm_n += per_step
+        step_ms.append(st * 1e3)
+        outs.append(lg[:, 0])
+    got = torch.stack(outs, 1)
+    _finite_logits(got, (1, RNN_STEPS, cfg.vocab), f"{tag} {arch} decode")
+    recs.update(step_ms_p50=sorted(step_ms)[len(step_ms) // 2],
+                step_launches=per_step, peak_gib=_peak_gib(device))
+    log(f"  {tag} {arch} {RNN_STEPS} decode_steps: {per_step} GEMM launches "
+        f"each as the sites imply, step p50 {recs['step_ms_p50']:.2f} ms; "
+        f"peak {recs['peak_gib']:.2f} GiB")
+    recs["decode vs forward"] = _held(got, logits["pc3_tr"][:, :RNN_STEPS],
+                                      PREFILL_APPROX_REL,
+                                      f"{arch} decode_steps vs forward", tag)
+    del model, params, art, cache, logits, got
+    _free(device)
+    return recs, gemm_n
+
+
+def _to_cpu(tree):
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_to_cpu(v) for v in tree)
+    return tree.cpu() if torch.is_tensor(tree) else tree
+
+
+def zamba_ring(device):
+    """(c): the shared block's ring cache on the card against the same
+    steps on the CPU, f32 exact, 16 steps past a window of 8. Returns the
+    largest relative deviation of the logits."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+
+    cfg = dataclasses.replace(
+        get_config("zamba2_1_2b"), param_dtype="float32",
+        compute_dtype="float32", **ZAMBA_RING).with_policy("*=exact")
+    card, cpu = build_model(cfg, device=device), build_model(cfg, device="cpu")
+    with torch.inference_mode():
+        params = card.init(seed=0)
+    params_cpu = _to_cpu(params)
+    toks = torch.from_numpy(np.random.default_rng(21).integers(
+        0, cfg.vocab, size=(1, ZAMBA_RING_STEPS)))
+    caches = {"card": card.init_cache(1, 4 * cfg.window),
+              "cpu": cpu.init_cache(1, 4 * cfg.window)}
+    outs = {"card": [], "cpu": []}
+    with torch.inference_mode():
+        for j in range(ZAMBA_RING_STEPS):
+            for where, model, p in (("card", card, params),
+                                    ("cpu", cpu, params_cpu)):
+                t = toks[:, j:j + 1].to(model.device)
+                lg, caches[where] = model.decode_step(p, t, caches[where])
+                outs[where].append(lg[:, 0].cpu())
+    ap_card = caches["card"]["attn_0"]["abs_pos"].cpu()
+    ap_cpu = caches["cpu"]["attn_0"]["abs_pos"]
+    want = list(range(ZAMBA_RING_STEPS - cfg.window, ZAMBA_RING_STEPS))
+    if ap_card.tolist() != ap_cpu.tolist() or sorted(ap_card.tolist()) != want:
+        raise SystemExit(f"(c) ring: abs_pos card {ap_card.tolist()}, CPU "
+                         f"{ap_cpu.tolist()} (expected the positions {want})")
+    rel = _held(torch.stack(outs["card"], 1), torch.stack(outs["cpu"], 1),
+                PREFILL_EXACT_REL, f"zamba ring (window {cfg.window}, "
+                f"{cfg.n_layers} layers, f32 exact) {ZAMBA_RING_STEPS} "
+                "decode_steps card vs CPU", "(c)")
+    del card, cpu, params, params_cpu, caches
+    _free(device)
+    return rel
+
+
+def rest_card_vs_cpu(device):
+    """(d): each model at full width, cut in depth (ZOO_REST_CPU), on the
+    card (its kernels) and on the CPU (their plain versions), under
+    ZOO_REST_CPU_RUNS; under PC3_TR the card's exact products too, which
+    must break the bound. Returns ({arch/spec: relative deviation}, GEMM
+    launches)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import build_artifacts
+
+    recs, gemm_n = {}, 0
+    for arch, cut in ZOO_REST_CPU.items():
+        for spec, dtype, seq in ZOO_REST_CPU_RUNS:
+            cfg = dataclasses.replace(get_config(arch), param_dtype=dtype,
+                                      compute_dtype=dtype,
+                                      **cut).with_policy(spec)
+            card = build_artifacts(cfg, device=device)
+            cpu = build_artifacts(cfg, device="cpu")
+            params = card.init_params(0)
+            rng = np.random.default_rng(22)
+            batch = {"tokens": rng.integers(0, cfg.vocab, size=(1, seq))}
+            if cfg.family == "audio":  # encode casts them to the dtype
+                batch["frames"] = rng.normal(size=(1, cfg.enc_frames,
+                                                   cfg.d_model)).astype(
+                    np.float32)
+            want = approx_launches_per_step(card.model)
+            got, sec = _counted(lambda: card.prefill_step(params, batch),
+                                f"(d) {arch} {spec} card", device, want)
+            gemm_n += want
+            t0 = time.perf_counter()
+            ref = cpu.prefill_step(_to_cpu(params), batch)
+            cpu_s = time.perf_counter() - t0
+            exact = spec == "*=exact"
+            lim = PREFILL_EXACT_REL if exact else ZOO_REST_CPU_APPROX_REL[arch]
+            where = ", ".join(f"{k} {v}" for k, v in cut.items())
+            recs[f"{arch} {spec}"] = _held(
+                got.cpu(), ref, lim, f"{arch} ({where}) {dtype} {spec} "
+                f"S={seq}: card {sec * 1e3:.1f} ms ({want} GEMM launches), "
+                f"CPU {cpu_s:.1f} s", "(d)", min_clear=1)
+            if not exact:
+                ctrl = build_artifacts(cfg.with_policy("*=exact"),
+                                       device=device)
+                got, _ = _counted(lambda: ctrl.prefill_step(params, batch),
+                                  f"(d) {arch} control", device, 0)
+                rel = _logit_agreement(got.cpu(), ref)[0]
+                recs[f"{arch} control"] = rel
+                log(f"  (d) control {arch} {dtype}: the card's exact products "
+                    f"vs the CPU's {spec}: max |diff| / max |ref| {rel:.4g}, "
+                    f"must exceed the bound {lim:g}")
+                if not rel > lim:
+                    raise SystemExit(f"(d) {arch}: exact products stay within "
+                                     f"the bound {lim:g}; it cannot tell "
+                                     "them from the approximate ones")
+                del ctrl
+            del card, cpu, params, got, ref
+            _free(device)
+    return recs, gemm_n
+
+
+def zoo_rest(device):
+    """Phase 13; returns (records, GEMM launches, flash launches)."""
+    recs = {}
+    recs["whisper"], gemm_n, flash_n = zoo_whisper(device)
+    recs["whisper_flash"], recs["flash_err"] = whisper_flash(device)
+    recs["gemms"], recs["gemm_err"] = rest_gemms(device)
+    for arch in ("xlstm_1_3b", "zamba2_1_2b"):
+        recs[arch], n = zoo_recurrent(device, arch)
+        gemm_n += n
+    recs["zamba_ring"] = zamba_ring(device)
+    recs["card_vs_cpu"], n = rest_card_vs_cpu(device)
+    gemm_n += n
     return recs, gemm_n, flash_n
 
 
@@ -2853,6 +3336,11 @@ def main(argv=None) -> int:
     log("== 12. the decoder-only zoo at published widths ==")
     zrec, zoo_gemm, zoo_flash_n = zoo(device, ptxas)
 
+    log("== 13. the rest of the zoo: Whisper, xLSTM, Zamba ==")
+    t13 = time.perf_counter()
+    rrec, rest_gemm, rest_flash_n = zoo_rest(device)
+    rrec["seconds"] = time.perf_counter() - t13
+
     log("== summary ==")
     log("  serve: " + report.summary().replace("\n", "\n  serve: "))
     for label, r in pre.items():
@@ -2902,6 +3390,18 @@ def main(argv=None) -> int:
         f"S={ZOO_DENSE_SEQ}; (f) llama_3_2_vision_11b forward "
         f"{zd['vlm']['ms']:.1f} ms, decode step p50 "
         f"{zd['vlm']['step_ms_p50']:.2f} ms")
+    rw, rx, rz = rrec["whisper"], rrec["xlstm_1_3b"], rrec["zamba2_1_2b"]
+    log(f"  zoo rest ({rrec['seconds']:.1f} s): (a) whisper_large_v3 "
+        f"forward (1500 frames, S={WHISPER_SEQ}) "
+        + ", ".join(f"{k} {rw[k]:.1f} ms" for k, _ in WHISPER_POLICIES)
+        + f"; encode {rw['encode_ms']:.1f} ms, decode step p50 "
+        f"{rw['step_ms_p50']:.2f} ms; (b) xlstm_1_3b forward S={RNN_SEQ} "
+        f"{rx['pc3_tr_ms']:.1f} ms (exact GEMMs {rx['exact_ms']:.1f}), "
+        f"decode step p50 {rx['step_ms_p50']:.2f} ms; (c) zamba2_1_2b "
+        f"{rz['pc3_tr_ms']:.1f} ms (exact GEMMs {rz['exact_ms']:.1f}), "
+        f"decode step p50 {rz['step_ms_p50']:.2f} ms; ring card vs CPU "
+        f"{rrec['zamba_ring']:.3g}; (d) card vs CPU "
+        + ", ".join(f"{k} {v:.3g}" for k, v in rrec["card_vs_cpu"].items()))
     rep = next(r for r in rows if (r["variant"], r["m"], r["k"], r["n"])
                == REPRESENTATIVE)
     xrep = next(r for r in rows if (r["variant"], r["m"], r["k"], r["n"])
@@ -2913,8 +3413,9 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/csrc/daism_matmul.cu",
         "replaces": "src/repro/kernels/daism_matmul.py:43",
         "launches": (serve_launches + pre_gemm + train_gemm + gen_gemm
-                     + drv_gemm + cnn_gemm + more_gemm + zoo_gemm),
-        "max_abs_err": max(max_err, gemm_err),
+                     + drv_gemm + cnn_gemm + more_gemm + zoo_gemm
+                     + rest_gemm),
+        "max_abs_err": max(max_err, gemm_err, rrec["gemm_err"]),
         "ms": rep["ms"],
         "plain_ms": rep["plain_ms"],
         "bound_ms": rep["bound_ms"],
@@ -2935,14 +3436,15 @@ def main(argv=None) -> int:
                    "bound_ms", "bound_by", "library_ms", "f32_library_ms")}
         | {"shape": [xrep["m"], xrep["k"], xrep["n"]]},
         "experts": zrec["experts"],
+        "zoo_rest": rrec["gemms"],
     }, {
         "name": "flash_attention",
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:54",
-        "launches": pre_flash + zoo_flash_n,
+        "launches": pre_flash + zoo_flash_n + rest_flash_n,
         "max_abs_err": max(flash_errs["exact"], flash_errs["approx"],
-                           flash_err, zrec["flash_err"]),
+                           flash_err, zrec["flash_err"], rrec["flash_err"]),
         "ms": frep["exact"]["ms"],
         "plain_ms": frep["exact"]["plain_ms"],
         "bound_ms": frep["exact"]["bound_ms"],
@@ -2954,6 +3456,7 @@ def main(argv=None) -> int:
                    ("variant", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")},
         "large_d": zrec["flash"],
+        "whisper": rrec["whisper_flash"],
     }]}
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     log(smi)

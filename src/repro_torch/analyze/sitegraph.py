@@ -133,6 +133,9 @@ def _input_specs(cfg: ArchConfig, *, batch: int, seq: int):
     if cfg.family == "vlm":
         specs["image_embeds"] = _meta((batch, cfg.n_image_tokens,
                                        cfg.d_model), cfg.compute_dtype)
+    if cfg.family == "audio":
+        specs["frames"] = _meta((batch, cfg.enc_frames, cfg.d_model),
+                                cfg.compute_dtype)
     return specs
 
 

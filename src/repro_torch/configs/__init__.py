@@ -1,7 +1,7 @@
 """Architecture configs: the JAX package's ids and aliases.
 
-``get_config`` takes the same ``--arch`` ids as ``repro.configs``; the ids
-whose model families are not ported yet raise ``NotImplementedError``.
+``get_config`` takes the same ``--arch`` ids as ``repro.configs``; every
+one of them is ported, and ``PORTED_IDS`` lists them all.
 """
 from __future__ import annotations
 
@@ -24,9 +24,7 @@ ARCH_IDS = (
 
 PAPER_IDS = ("lenet5", "vgg16", "vgg8")
 
-PORTED_IDS = ("tinyllama_1_1b", "gemma_2b", "starcoder2_15b",
-              "nemotron_4_340b", "dbrx_132b", "qwen3_moe_235b",
-              "llama_3_2_vision_11b", "lenet5", "vgg16", "vgg8")
+PORTED_IDS = ARCH_IDS + PAPER_IDS
 
 _ALIAS = {i.replace("_", "-"): i for i in ARCH_IDS + PAPER_IDS}
 
@@ -36,7 +34,4 @@ def get_config(arch: str) -> ArchConfig:
     if arch not in ARCH_IDS + PAPER_IDS:
         raise ValueError(f"unknown arch {arch!r}; expected one of "
                          f"{sorted(ARCH_IDS + PAPER_IDS)}")
-    if arch not in PORTED_IDS:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet; ported: {list(PORTED_IDS)}")
     return importlib.import_module(f"repro_torch.configs.{arch}").CONFIG

@@ -15,10 +15,15 @@ to lay out or compile).
   under ``torch.no_grad()``.
 * ``decode_step(params, tokens, cache, extra=None) -> (logits, cache)``:
   one token through ``model.decode_step`` under ``torch.no_grad()`` (a
-  VLM's ``extra`` is its ``image_embeds``), on a slot cache
-  from ``init_cache(batch_size, max_seq)`` (allocated on the artifacts'
+  VLM's ``extra`` is its ``image_embeds``), on a cache from
+  ``init_cache(batch_size, max_seq)`` (allocated on the artifacts'
   device; the reference's ``make_cache_shapes`` gives the same tree
-  abstractly). The cache is written in place.
+  abstractly): a slot cache, an encoder-decoder's with ``enc`` (the caller
+  fills it with ``model.encode``), or the recurrent states of xLSTM and
+  Zamba. The cache is written in place.
+
+Every family trains and prefills alike: an audio batch carries
+``frames`` beside ``tokens`` and ``labels``.
 """
 from __future__ import annotations
 
@@ -55,7 +60,8 @@ def build_artifacts(cfg: ArchConfig, *, device="cuda",
     dev = model.device
 
     def to_device(batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        # token ids as int64; float inputs (a VLM's image_embeds) as they are
+        # token ids as int64; float inputs (a VLM's image_embeds, an
+        # encoder-decoder's frames) as they are
         out = {}
         for k, v in batch.items():
             t = torch.as_tensor(v).to(dev)

@@ -3,8 +3,10 @@
 ``jax.random`` draws cannot be reproduced in torch, so parity tests make the
 weights once with the reference and load them here. The input is the JAX
 param pytree with numpy leaves (``jax.tree.map(np.asarray, params)``); the
-key paths are identical in both packages, including the stacked ``blocks``
-layer axis.
+key paths are identical in both packages, including the stacked layer axes
+(``blocks``, ``enc_blocks``/``dec_blocks``, ``mlstm_blocks``/``slstm_blocks``,
+``mamba_blocks``) and their f32 leaves (norms, the sLSTM's ``r_*``,
+Mamba's ``a_log``/``d_skip``).
 """
 from __future__ import annotations
 
@@ -36,7 +38,8 @@ def params_from_jax(np_tree: Dict[str, Any], cfg: ArchConfig,
     """The port's parameters for ``cfg`` from the JAX package's tree.
 
     Raises if the paths, shapes or dtypes differ from what the port's model
-    for ``cfg.family`` (``DecoderLM``, ``CNNModel``) declares.
+    for ``cfg.family`` (``DecoderLM``, ``EncDecLM``, ``XLSTMModel``,
+    ``ZambaModel``, ``CNNModel``) declares in its ``param_specs``.
     """
     model = build_model(cfg, device=device)
     specs = model.param_specs()

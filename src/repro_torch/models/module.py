@@ -102,10 +102,14 @@ def flatten(params: Params, prefix: str = "") -> Dict[str, torch.Tensor]:
     return out
 
 
-def layer_slice(tree: Params, i) -> Params:
-    """Row ``i`` (an int or a slice) of every leaf of a stacked tree."""
-    return {k: layer_slice(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
+def layer_slice(tree, i):
+    """Row ``i`` (an int or a slice) of every leaf of a stacked tree (dicts
+    and tuples of tensors, as the recurrent models' caches are)."""
+    if isinstance(tree, dict):
+        return {k: layer_slice(v, i) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(layer_slice(v, i) for v in tree)
+    return tree[i]
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,18 @@
 """Model registry: family -> model class (the decoder-only LMs: dense, MoE
-and VLM; the paper's CNNs), plus the shared LM and classifier losses."""
+and VLM; the Whisper encoder-decoder, xLSTM and the Zamba hybrid; the
+paper's CNNs), plus the shared LM and classifier losses."""
 from __future__ import annotations
 
 import torch
 
 from .cnn import CNNModel
 from .common import ArchConfig
-from .transformer import DecoderLM
+from .transformer import DecoderLM, EncDecLM
+from .xlstm import XLSTMModel
+from .zamba import ZambaModel
 
 _FAMILIES = {"dense": DecoderLM, "moe": DecoderLM, "vlm": DecoderLM,
+             "audio": EncDecLM, "ssm": XLSTMModel, "hybrid": ZambaModel,
              "cnn": CNNModel}
 
 

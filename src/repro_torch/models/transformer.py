@@ -1,5 +1,6 @@
 """Decoder-only transformer (dense, MoE, VLM): ``forward``, slot-cache
-generation and paged serving steps.
+generation and paged serving steps; the Whisper encoder-decoder
+(``EncDecLM``).
 
 Parameters are the JAX package's tree: stacked ``blocks`` tensors with a
 leading layer axis (and, for a VLM, stacked ``cross_blocks``). The
@@ -13,7 +14,8 @@ Ported: ``init``, ``forward``, ``init_cache``/``prefill``/``decode_step``
 ``paged_verify_step``; MoE FFNs (``models/moe.py``, the load-balance aux
 summed over layers) and a VLM's cross-attention blocks (a group of
 ``cross_every`` self blocks, then cross block ``g`` under the site scope
-``cross_{g}``). Not yet: ``EncDecLM``.
+``cross_{g}``); ``EncDecLM``'s ``encode``, ``forward``, ``init_cache`` and
+``decode_step``.
 """
 from __future__ import annotations
 
@@ -109,26 +111,79 @@ def cross_block(ctx: Ctx, cfg: ArchConfig, x, kv_src):
 
 
 def run_policy_segments(layer_fn, stacked_params: Params, x, *, segments,
-                        cache: Optional[Params] = None,
+                        base: int = 0, cache: Optional[Params] = None,
                         prefix: str = "layer"):
     """Run ``x`` through the layer stack, segment by segment; returns (x,
     the sum of the layers' aux losses).
 
-    ``segments`` are (lo, hi) layer ranges (plan_segments). Each segment runs
-    under the site scope ``{prefix}_{lo}`` — per-depth rules resolve against
-    its first layer, as in the reference's segmented scans — with one
-    ``layer_fn(ctx, x, cache)`` call per layer on that layer's row of the
-    stacked params (and of the stacked cache, whose rows are views, so
-    in-place updates land in the caller's cache).
+    ``segments`` are (lo, hi) *global* layer ranges (plan_segments); the
+    stacked params and cache are indexed relative to ``base``, the global
+    index of their row 0 (an xLSTM's mLSTM stack holds only some of the
+    layers). Each segment runs under the site scope ``{prefix}_{lo}`` —
+    per-depth rules resolve against its first layer, as in the reference's
+    segmented scans — with one ``layer_fn(ctx, x, cache)`` call per layer
+    on that layer's row of the stacked params (and of the stacked cache,
+    whose rows are views, so in-place updates land in the caller's cache).
     """
     aux = 0.0
     for lo, hi in segments:
         with site_scope(f"{prefix}_{lo}", repeat=hi - lo):
-            for i in range(lo, hi):
+            for i in range(lo - base, hi - base):
                 c = None if cache is None else layer_slice(cache, i)
                 x, _, a = layer_fn(Ctx(layer_slice(stacked_params, i)), x, c)
                 aux = aux + a
     return x, aux
+
+
+# ---------------------------------------------------------------------------
+# Parameter specs shared by the language models
+# ---------------------------------------------------------------------------
+
+def lm_specs(cfg: ArchConfig) -> Dict[str, tuple]:
+    """The embedding, the final norm and (untied) the lm_head."""
+    d, pd = cfg.d_model, cfg.param_dtype
+    specs: Dict[str, tuple] = {
+        "embedding": ((cfg.vocab, d), pd, normal_init(1.0)),
+        "final_ln_scale": ((d,), "float32", ones_init()),
+    }
+    if cfg.norm == "layernorm":
+        specs["final_ln_bias"] = ((d,), "float32", zeros_init())
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ((d, cfg.vocab), pd, lecun_init())
+    return specs
+
+
+def block_specs(specs: Dict[str, tuple], cfg: ArchConfig, stack: str,
+                n: Optional[int], scope: str, ln: str, mats) -> None:
+    """Add one block scope's norm ``ln`` and matrices ``mats`` (name, shape,
+    dtype, bias) under ``{stack}/{scope}``, stacked ``n`` deep (``None``: a
+    single block, as Zamba's shared one)."""
+    lead = () if n is None else (n,)
+    d, pre = cfg.d_model, f"{stack}/{scope}"
+    specs[f"{pre}/{ln}_scale"] = ((*lead, d), "float32", ones_init())
+    if cfg.norm == "layernorm":
+        specs[f"{pre}/{ln}_bias"] = ((*lead, d), "float32", zeros_init())
+    for name, shape, dtype, bias in mats:
+        specs[f"{pre}/{name}"] = ((*lead, *shape), dtype, lecun_init())
+        if bias:
+            specs[f"{pre}/{name}_b"] = ((*lead, shape[-1]), cfg.param_dtype,
+                                        zeros_init())
+
+
+def attn_mats(cfg: ArchConfig, bias: bool):
+    d, pd = cfg.d_model, cfg.param_dtype
+    return [("wq", (d, cfg.q_dim), pd, bias),
+            ("wk", (d, cfg.kv_dim), pd, bias),
+            ("wv", (d, cfg.kv_dim), pd, bias),
+            ("wo", (cfg.q_dim, d), pd, bias)]
+
+
+def ffn_mats(cfg: ArchConfig, bias: bool):
+    d, pd = cfg.d_model, cfg.param_dtype
+    gated = cfg.act in ("swiglu", "geglu")
+    return ([("wi", (d, cfg.d_ff), pd, bias)]
+            + ([("wg", (d, cfg.d_ff), pd, False)] if gated else [])
+            + [("wo", (cfg.d_ff, d), pd, bias)])
 
 
 # ---------------------------------------------------------------------------
@@ -166,53 +221,29 @@ class DecoderLM:
         """``{path: (shape, dtype, init)}`` of every parameter, with the JAX
         package's key paths and shapes."""
         cfg = self.cfg
-        d, L, pd = cfg.d_model, cfg.n_layers, cfg.param_dtype
-        specs: Dict[str, tuple] = {
-            "embedding": ((cfg.vocab, d), pd, normal_init(1.0)),
-            "final_ln_scale": ((d,), "float32", ones_init()),
-        }
-        if cfg.norm == "layernorm":
-            specs["final_ln_bias"] = ((d,), "float32", zeros_init())
-        if not cfg.tie_embeddings:
-            specs["lm_head"] = ((d, cfg.vocab), pd, lecun_init())
+        L = cfg.n_layers
+        specs = lm_specs(cfg)
         use_bias = cfg.norm == "layernorm"
-        gated = cfg.act in ("swiglu", "geglu")
-
-        def block(stack, n, scope, ln, mats):
-            pre = f"{stack}/{scope}"
-            specs[f"{pre}/{ln}_scale"] = ((n, d), "float32", ones_init())
-            if cfg.norm == "layernorm":
-                specs[f"{pre}/{ln}_bias"] = ((n, d), "float32", zeros_init())
-            for name, shape, dtype, bias in mats:
-                specs[f"{pre}/{name}"] = ((n, *shape), dtype, lecun_init())
-                if bias:
-                    specs[f"{pre}/{name}_b"] = ((n, shape[-1]), pd,
-                                                zeros_init())
-
-        def attn(bias):
-            return [("wq", (d, cfg.q_dim), pd, bias),
-                    ("wk", (d, cfg.kv_dim), pd, bias),
-                    ("wv", (d, cfg.kv_dim), pd, bias),
-                    ("wo", (cfg.q_dim, d), pd, bias)]
-
-        def ffn(bias):
-            return ([("wi", (d, cfg.d_ff), pd, bias)]
-                    + ([("wg", (d, cfg.d_ff), pd, False)] if gated else [])
-                    + [("wo", (cfg.d_ff, d), pd, bias)])
-
-        block("blocks", L, "attn", "ln1", attn(use_bias))
+        block_specs(specs, cfg, "blocks", L, "attn", "ln1",
+                    attn_mats(cfg, use_bias))
         if cfg.n_experts:
+            d, pd = cfg.d_model, cfg.param_dtype
             e, ff = cfg.n_experts, cfg.expert_ff
-            block("blocks", L, "ffn", "ln2",
-                  [("router", (d, e), "float32", False),
-                   ("w_in", (e, d, ff), pd, False)]
-                  + ([("w_gate", (e, d, ff), pd, False)] if gated else [])
-                  + [("w_out", (e, ff, d), pd, False)])
+            gated = cfg.act in ("swiglu", "geglu")
+            block_specs(specs, cfg, "blocks", L, "ffn", "ln2",
+                        [("router", (d, e), "float32", False),
+                         ("w_in", (e, d, ff), pd, False)]
+                        + ([("w_gate", (e, d, ff), pd, False)] if gated
+                           else [])
+                        + [("w_out", (e, ff, d), pd, False)])
         else:
-            block("blocks", L, "ffn", "ln2", ffn(use_bias))
+            block_specs(specs, cfg, "blocks", L, "ffn", "ln2",
+                        ffn_mats(cfg, use_bias))
         if self.is_vlm:  # cross blocks carry no biases
-            block("cross_blocks", self.n_cross, "xattn", "ln1", attn(False))
-            block("cross_blocks", self.n_cross, "ffn", "ln2", ffn(False))
+            block_specs(specs, cfg, "cross_blocks", self.n_cross, "xattn",
+                        "ln1", attn_mats(cfg, False))
+            block_specs(specs, cfg, "cross_blocks", self.n_cross, "ffn",
+                        "ln2", ffn_mats(cfg, False))
         return specs
 
     def init(self, seed: int = 0) -> Params:
@@ -440,3 +471,177 @@ class DecoderLM:
         match = (greedy[:, :-1] == tokens[:, 1:]).to(torch.int32)
         n_acc = torch.cumprod(match, dim=1).sum(dim=1)        # (B,)
         return greedy, n_acc, new_kv
+
+
+# ---------------------------------------------------------------------------
+# Encoder-decoder (the Whisper backbone; the conv/audio frontend is a stub,
+# as in the reference: batches carry precomputed frame embeddings)
+# ---------------------------------------------------------------------------
+
+def encoder_block(ctx: Ctx, cfg: ArchConfig, x, *, positions, cache=None):
+    """Bidirectional self-attention + MLP, both with biases."""
+    with ctx.scope("attn"):
+        h, _ = self_attention(ctx, norm(ctx, "ln1", x, cfg), cfg,
+                              positions=positions, causal=False,
+                              use_bias=True)
+    x = x + h
+    with ctx.scope("ffn"):
+        x = x + mlp(ctx, norm(ctx, "ln2", x, cfg), cfg, use_bias=True)
+    return x, None, 0.0
+
+
+def encdec_decoder_block(ctx: Ctx, cfg: ArchConfig, x, *, positions,
+                         enc_kv, cache=None):
+    """Causal self-attention (slot-cached in ``decode_step``), cross
+    attention to the encoder states, MLP; every GEMM with a bias."""
+    with ctx.scope("attn"):
+        h, new_cache = self_attention(ctx, norm(ctx, "ln1", x, cfg), cfg,
+                                      positions=positions, cache=cache,
+                                      causal=True, use_bias=True)
+    x = x + h
+    with ctx.scope("xattn"):
+        h = cross_attention(ctx, norm(ctx, "lnx", x, cfg), enc_kv, cfg,
+                            use_bias=True)
+    x = x + h
+    with ctx.scope("ffn"):
+        x = x + mlp(ctx, norm(ctx, "ln2", x, cfg), cfg, use_bias=True)
+    return x, new_cache, 0.0
+
+
+def encoder_block_sites(cfg: ArchConfig, i: int):
+    base = f"encoder/layer_{i}"
+    return attn_sites(f"{base}/attn") + mlp_sites(cfg, f"{base}/ffn")
+
+
+def encdec_decoder_sites(cfg: ArchConfig, i: int):
+    base = f"decoder/layer_{i}"
+    return (attn_sites(f"{base}/attn") + attn_sites(f"{base}/xattn")
+            + mlp_sites(cfg, f"{base}/ffn"))
+
+
+class EncDecLM:
+    """Whisper-style: a transformer encoder over precomputed frame
+    embeddings (plus the learned ``enc_pos``), a causal decoder with no
+    positional embedding and cross attention in every layer.
+
+    ``decode_step`` recomputes the cross-attention K/V from ``cache['enc']``
+    at every step, as the reference does (it keeps no cross-KV cache).
+    ``device`` is where :meth:`init` and :meth:`init_cache` allocate; it
+    defaults to the card.
+    """
+
+    def __init__(self, cfg: ArchConfig, device="cuda"):
+        if cfg.family != "audio":
+            raise NotImplementedError(
+                f"{cfg.name}: family {cfg.family!r} is not an "
+                "encoder-decoder")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        pol = cfg.approx_policy
+        self.enc_segments = plan_segments(
+            pol, functools.partial(encoder_block_sites, cfg), 0,
+            cfg.enc_layers)
+        self.dec_segments = plan_segments(
+            pol, functools.partial(encdec_decoder_sites, cfg), 0,
+            cfg.n_layers)
+
+    def param_specs(self) -> Dict[str, tuple]:
+        """``{path: (shape, dtype, init)}`` with the JAX package's paths."""
+        cfg = self.cfg
+        specs = lm_specs(cfg)
+        specs["enc_pos"] = ((cfg.enc_frames, cfg.d_model), cfg.param_dtype,
+                            normal_init())
+        E, L = cfg.enc_layers, cfg.n_layers
+        block_specs(specs, cfg, "enc_blocks", E, "attn", "ln1",
+                    attn_mats(cfg, True))
+        block_specs(specs, cfg, "enc_blocks", E, "ffn", "ln2",
+                    ffn_mats(cfg, True))
+        block_specs(specs, cfg, "dec_blocks", L, "attn", "ln1",
+                    attn_mats(cfg, True))
+        block_specs(specs, cfg, "dec_blocks", L, "xattn", "lnx",
+                    attn_mats(cfg, True))
+        block_specs(specs, cfg, "dec_blocks", L, "ffn", "ln2",
+                    ffn_mats(cfg, True))
+        return specs
+
+    def init(self, seed: int = 0) -> Params:
+        """Random parameters on ``self.device`` from a ``torch.Generator``
+        seeded with ``seed``."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        return init_params(self.param_specs(), gen, self.device)
+
+    def encode(self, params: Params, frames: torch.Tensor) -> torch.Tensor:
+        """frames (B, enc_frames, d) -> encoder states, compute dtype."""
+        cfg = self.cfg
+        dt = torch_dtype(cfg.compute_dtype)
+        x = frames.to(dt) + params["enc_pos"].to(dt)
+        positions = torch.arange(frames.shape[1], device=frames.device)
+
+        def enc_fn(c, xx, cache=None):
+            return encoder_block(c, cfg, xx, positions=positions)
+
+        with site_scope("encoder"):
+            x, _ = run_policy_segments(enc_fn, params["enc_blocks"], x,
+                                       segments=self.enc_segments)
+        return x
+
+    def forward(self, params: Params, batch: Dict[str, torch.Tensor]):
+        """tokens (B, S) and frames (B, enc_frames, d) -> (logits (B, S, V),
+        aux 0.0)."""
+        cfg = self.cfg
+        enc = self.encode(params, batch["frames"])
+        tokens = batch["tokens"]
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        ctx = Ctx(params)
+
+        def dec_fn(c, xx, cache=None):
+            return encdec_decoder_block(c, cfg, xx, positions=positions,
+                                        enc_kv=enc)
+
+        with site_scope("decoder"):
+            x = embed(ctx, tokens, cfg)
+            x, _ = run_policy_segments(dec_fn, params["dec_blocks"], x,
+                                       segments=self.dec_segments)
+            x = norm(ctx, "final_ln", x, cfg)
+            logits = unembed(ctx, x, cfg)
+        return logits, torch.zeros((), dtype=torch.float32,
+                                   device=tokens.device)
+
+    def init_cache(self, batch_size: int, max_seq: int):
+        """The decoder's slot cache on ``self.device`` (``k``/``v`` (layers,
+        B, max_seq, KH, HD), ``pos`` an int32 scalar) and ``enc`` (B,
+        enc_frames, d) zeros: the caller fills it with :meth:`encode`."""
+        cfg = self.cfg
+        dt = torch_dtype(cfg.compute_dtype)
+        kshape = (cfg.n_layers, batch_size, max_seq, cfg.kv_heads,
+                  cfg.head_dim)
+        return {
+            "k": torch.zeros(kshape, dtype=dt, device=self.device),
+            "v": torch.zeros(kshape, dtype=dt, device=self.device),
+            "enc": torch.zeros((batch_size, cfg.enc_frames, cfg.d_model),
+                               dtype=dt, device=self.device),
+            "pos": torch.zeros((), dtype=torch.int32, device=self.device),
+        }
+
+    def decode_step(self, params: Params, tokens: torch.Tensor, cache):
+        """tokens (B, 1) at the scalar ``cache['pos']``, attending to
+        ``cache['enc']``. Returns (logits (B, 1, V), the cache with ``pos``
+        advanced by one); ``k``/``v`` are written in place."""
+        cfg = self.cfg
+        pos, enc = cache["pos"], cache["enc"]
+        positions = pos.reshape(1)
+        ctx = Ctx(params)
+
+        def layer_fn(c, xx, lc=None):
+            return encdec_decoder_block(c, cfg, xx, positions=positions,
+                                        enc_kv=enc, cache=dict(lc, pos=pos))
+
+        with site_scope("decoder"):
+            x = embed(ctx, tokens, cfg)
+            x, _ = run_policy_segments(
+                layer_fn, params["dec_blocks"], x, segments=self.dec_segments,
+                cache={"k": cache["k"], "v": cache["v"]})
+            x = norm(ctx, "final_ln", x, cfg)
+            logits = unembed(ctx, x, cfg)
+        return logits, {"k": cache["k"], "v": cache["v"], "enc": enc,
+                        "pos": pos + 1}

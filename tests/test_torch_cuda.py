@@ -465,3 +465,44 @@ def test_tied_lm_head_bits_unchanged_by_the_hoisted_transpose(cuda):
             fresh, _ = model.forward(params, {"tokens": toks})
         torch.cuda.synchronize()
         assert torch.equal(first, kept) and torch.equal(first, fresh), spec
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,spec,flash", [
+    ("whisper_large_v3", "*=pc3_tr:pallas", 0),
+    ("whisper_large_v3", "*/kernel=pc3_tr:flash,*=pc3_tr:pallas", 6),
+    ("xlstm_1_3b", "*=pc3_tr:pallas", 0),
+    ("zamba2_1_2b", "*/kernel=pc3_tr:flash,*=pc3_tr:pallas", 0)])
+def test_rest_of_zoo_on_the_kernels_matches_the_cpu(cuda, arch, spec, flash):
+    """Whisper, xLSTM and Zamba (bf16 smoke configs) on the card, where
+    every approximate GEMM site launches the kernel once and Whisper's
+    three attention sites a layer pair launch flash (Zamba's windowed
+    attention never does), against the same weights and inputs on the CPU
+    (the plain versions): within 0.2 of max |logit| (chip_smoke.py's
+    bound for approximate GEMMs)."""
+    from repro_torch.analyze import trace_site_graph
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import build_artifacts
+    from repro_torch.models.module import flatten, unflatten
+    from repro_torch.policy import OpKind
+
+    cfg = get_config(arch).smoke(vocab=512).with_policy(spec)
+    card, cpu = (build_artifacts(cfg, device=d) for d in (cuda, "cpu"))
+    params = card.init_params(0)
+    params_cpu = unflatten({k: v.cpu() for k, v in flatten(params).items()})
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, 512, (2, 12), generator=g)}
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((2, cfg.enc_frames, cfg.d_model),
+                                      generator=g)
+    sites = sum(s.repeat for s in trace_site_graph(cfg).sites
+                if s.kind is not OpKind.ATTN_QK)
+    dm.launches = fa.launches = 0
+    got = card.prefill_step(params, batch)
+    torch.cuda.synchronize()
+    assert (dm.launches, fa.launches) == (sites, flash)
+    ref = cpu.prefill_step(params_cpu, batch)
+    got = got.float().cpu()
+    ref = ref.float()
+    assert bool(torch.isfinite(got).all())
+    assert (got - ref).abs().max() <= 0.2 * ref.abs().max()

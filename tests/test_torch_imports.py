@@ -49,7 +49,11 @@ def test_every_port_module_imports_without_jax():
     assert len(mods) >= 25
     assert {"repro_torch.models.moe", "repro_torch.configs.gemma_2b",
             "repro_torch.configs.qwen3_moe_235b",
-            "repro_torch.configs.llama_3_2_vision_11b"} <= set(mods)
+            "repro_torch.configs.llama_3_2_vision_11b",
+            "repro_torch.models.xlstm", "repro_torch.models.zamba",
+            "repro_torch.configs.whisper_large_v3",
+            "repro_torch.configs.xlstm_1_3b",
+            "repro_torch.configs.zamba2_1_2b"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"

@@ -210,7 +210,8 @@ def test_entry_points_default_to_the_card():
     cfg = tget("tinyllama_1_1b").smoke(n_layers=2, vocab=64)
     with pytest.raises(RuntimeError, match="cuda"):
         tbuild(cfg)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tget("xlstm_1_3b")
+    for arch in ("whisper_large_v3", "xlstm_1_3b", "zamba2_1_2b"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            tbuild(tget(arch).smoke())
     with pytest.raises(ValueError, match="unknown arch"):
         tget("gpt5")
