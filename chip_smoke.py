@@ -168,9 +168,28 @@ and prints the kernels' times beside their bounds. Phases:
               token clear of the deviation; PC3_TR's bound is below the
               deviation of the card's exact products, which must break it.
               GEMM launches equal the sites of every forward and step.
+14. lint    — daism-lint and the launchers' preflight: (a) ``python -m
+              repro_torch.launch.lint --all --device cuda`` in a process of
+              its own exits 0 with no error and no TIL003 finding over the
+              13 ids (wall time, and each id's error/warning/info counts);
+              (b) the GEMM's shared memory a block as the checker counts it
+              (kernels/daism_matmul.py::smem_bytes) equals the compiled
+              tile kernel's (ptxas's ``bytes smem`` from phase 2, and the
+              CUDA attribute) and, for every split-K plan, the bytes the
+              launcher requests (the library's daism_matmul_smem); (c)
+              ``launch.serve.main`` at TinyLlama's full width with a rule
+              that matches nothing (POL001), a pool smaller than one
+              request (SRV002) and ``--shards 2`` (SRV000), and
+              ``launch.train.main`` with the first, each raise SystemExit
+              naming the code, with no new CUDA byte and no kernel launch;
+              (d) a clean serve (PC3_TR on the kernel, 4 requests, full
+              depth) and train (2 layers, 2 steps) run through the
+              preflight, whose own wall time is printed beside the
+              launcher's; TIL003 fires for a cpu target and not the card.
 
-Every check raises on failure and nothing is caught (checks 3c, 6 and 9
-expect their errors), so any failure exits non-zero before the final line. TF32 is
+Every check raises on failure and nothing is caught (checks 3c, 6, 9 and
+14c expect their errors), so any failure exits non-zero before the final
+line. TF32 is
 off for every f32 matmul here.
 The last two lines are the JSON kernel record and the result line.
 """
@@ -448,6 +467,18 @@ ZOO_REST_CPU_RUNS = (("*=exact", "float32", 16),
 # op and carried through approximate products in the next layers
 ZOO_REST_CPU_APPROX_REL = {"whisper_large_v3": 0.08, "xlstm_1_3b": 0.1,
                            "zamba2_1_2b": 0.03}
+# phase 14: daism-lint and the launchers' preflight on the card. (c): the
+# launches at TinyLlama's full width that the preflight must stop before a
+# weight exists, each with the code it must name (serve, and train for the
+# first); (d): a clean serve and a short train run through it
+LINT_BOGUS = "*/bogus/*=exact,*=pc3_tr:pallas"
+LINT_ABORTS = ((["--policy", LINT_BOGUS], "POL001"),
+               (["--blocks", "1", "--max-seq", "2048"], "SRV002"),
+               (["--shards", "2"], "SRV000"))
+LINT_POLICY = "*=pc3_tr:pallas"
+LINT_SERVE = ["--policy", LINT_POLICY, "--requests", "4"]
+LINT_TRAIN = ["--layers", "2", "--steps", "2", "--batch", "2", "--seq",
+              "64", "--policy", LINT_POLICY, "--log-every", "1"]
 
 
 def gemm_rtol(k: int) -> float:
@@ -2671,7 +2702,7 @@ def zoo_flash(device, ptxas):
     spills = ptxas_summary(ptxas, marks)
     log("  (g) ptxas, largest over variants: " + "; ".join(
         f"{k} {r} registers, {sp} bytes spilled"
-        for k, (r, sp) in spills.items()))
+        for k, (r, sp, _) in spills.items()))
     gen = torch.Generator(device=device).manual_seed(17)
     variants = [None] + [v for v in Variant if v is not Variant.EXACT]
     errs = {"exact": 0.0, "exact_over_1ulp": -1.0, "approx": 0.0,
@@ -3170,6 +3201,214 @@ def zoo_rest(device):
     return recs, gemm_n, flash_n
 
 
+# ---------------------------------------------------------------------------
+# phase 14: daism-lint and the launchers' preflight
+# ---------------------------------------------------------------------------
+
+def _json_objects(text: str):
+    """The JSON objects printed one after another in ``text``."""
+    dec, pos, objs = json.JSONDecoder(), 0, []
+    while (pos := text.find("{", pos)) >= 0:
+        obj, pos = dec.raw_decode(text, pos)
+        objs.append(obj)
+    return objs
+
+
+def lint_all():
+    """(a): ``python -m repro_torch.launch.lint --all --device cuda`` in a
+    process of its own; exit 0, no error and no TIL003 finding over every
+    id. Returns (wall seconds, {id: (errors, warnings, infos)})."""
+    import os
+
+    from repro_torch.configs import ARCH_IDS, PAPER_IDS
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                               if p]))
+    cmd = [sys.executable, "-m", "repro_torch.launch.lint", "--all",
+           "--device", "cuda", "--format", "json"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    sec = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SystemExit(f"lint --all exited {proc.returncode}:\n"
+                         f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    reports = _json_objects(proc.stdout)
+    ids = ARCH_IDS + PAPER_IDS
+    if len(reports) != len(ids):
+        raise SystemExit(f"lint --all printed {len(reports)} reports for "
+                         f"{len(ids)} ids")
+    counts = {}
+    for name, r in zip(ids, reports):
+        sev = [f["severity"] for f in r["findings"]]
+        counts[name] = tuple(sev.count(s) for s in ("error", "warning",
+                                                      "info"))
+        if counts[name][0] or any(f["code"] == "TIL003"
+                                  for f in r["findings"]):
+            raise SystemExit(f"lint --all: {name} has an error or TIL003: "
+                             f"{r['findings']}")
+    log(f"  (a) lint --all --device cuda: {len(ids)} ids, exit 0, no error, "
+        f"no TIL003; {sec:.2f} s wall (a process of its own, imports "
+        "included); errors/warnings/infos: " + ", ".join(
+            f"{k} {e}/{w}/{i}" for k, (e, w, i) in counts.items()))
+    return sec, counts
+
+
+def lint_smem(ptxas: str):
+    """(b): the checker's shared-memory bytes of each GEMM path against
+    the compiled kernel: the tile path's against ptxas's ``bytes smem``
+    (from phase 2's build) and the library's query, every split-K plan's
+    against the bytes the launcher requests. Returns {path: bytes}."""
+    from repro_torch.kernels import daism_matmul as dm
+
+    tile = dm.smem_bytes(None)
+    compiled = ptxas_summary(ptxas, {"tile": "daism_matmul_approx"})
+    if "Compiling entry function" in ptxas:
+        if compiled.get("tile", (0, 0, 0))[2] != tile:
+            raise SystemExit(f"the tile kernel's ptxas shared memory "
+                             f"{compiled.get('tile')} != the checker's "
+                             f"{tile} bytes")
+        seen = f"ptxas {compiled['tile'][2]}"
+    else:  # phase 2 found the libraries built by an earlier run
+        seen = "ptxas not printed (libraries already built)"
+    queried = dm.smem_query(None)
+    if queried != tile:
+        raise SystemExit(f"the tile kernel's shared memory {queried} (CUDA "
+                         f"attribute) != the checker's {tile} bytes")
+    out = {"tile": tile}
+    for plan in dm.SPLIT_K_PLANS:
+        want, got = dm.smem_bytes(plan), dm.smem_query(plan)
+        if got != want:
+            raise SystemExit(f"split-K {plan}: the launcher requests {got} "
+                             f"bytes, the checker counts {want}")
+        out[f"splitk {plan[0]}x{plan[1]}"] = got
+    log(f"  (b) GEMM shared memory a block, checker = compiled: tile path "
+        f"{tile} B ({seen}, CUDA attribute {queried}); split-K (rows, "
+        "columns a thread) " + ", ".join(
+            f"{p} {dm.smem_query(p)} B" for p in dm.SPLIT_K_PLANS))
+    return out
+
+
+def _aborts(device, main, argv, code):
+    """(c): ``main(argv)`` must raise SystemExit naming ``code`` with no new
+    CUDA bytes and no kernel launch; returns its wall seconds."""
+    import torch
+
+    from repro_torch.kernels import daism_matmul as dm
+    from repro_torch.kernels import flash_attention as fa
+
+    _sync(device)
+    before = (torch.cuda.memory_allocated(device), dm.launches, fa.launches)
+    t0 = time.perf_counter()
+    try:
+        main(argv)
+    except SystemExit as e:
+        msg = str(e.code)
+    else:
+        raise SystemExit(f"{argv} ran past its preflight")
+    sec = time.perf_counter() - t0
+    _sync(device)
+    after = (torch.cuda.memory_allocated(device), dm.launches, fa.launches)
+    if code not in msg or after != before:
+        raise SystemExit(f"{argv}: aborted with {msg!r} (want {code}); CUDA "
+                         f"bytes and launches {before} -> {after}")
+    return sec
+
+
+def lint(device, ptxas: str):
+    """Phase 14; returns (records, GEMM kernel launches of (d))."""
+    import contextlib
+    import io
+    import re
+    import shutil
+
+    import torch
+
+    import repro_torch.analyze as lint_mod
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import daism_matmul as dm
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.launch import train as train_launcher
+
+    log(f"  {nvidia_smi_line()}")
+    rec = {}
+    rec["all_s"], rec["counts"] = lint_all()
+    rec["smem"] = lint_smem(ptxas)
+
+    ckdir = ROOT / "build" / "chip_smoke_lint"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    base = ["--arch", "tinyllama_1_1b", "--device", str(device)]
+    rec["abort_s"] = {}
+    for extra, code in LINT_ABORTS:
+        rec["abort_s"][f"serve {code}"] = _aborts(
+            device, serve_launcher.main, base + extra, code)
+    extra, code = LINT_ABORTS[0]
+    rec["abort_s"][f"train {code}"] = _aborts(
+        device, train_launcher.main, base + extra + ["--ckpt", str(ckdir)],
+        code)
+    log("  (c) aborted by the preflight at full width, no CUDA byte and no "
+        "launch: " + ", ".join(f"{k} {v:.2f} s"
+                               for k, v in rec["abort_s"].items()))
+
+    # (d) the target decides TIL003, not the host
+    cfg = get_config("tinyllama_1_1b")
+    til3 = {t: any(f.code == "TIL003" for f in lint_mod.analyze(
+        cfg, LINT_POLICY, device=t).findings) for t in ("cuda", "cpu")}
+    if til3 != {"cuda": False, "cpu": True}:
+        raise SystemExit(f"TIL003 by target: {til3}")
+    real, timed = lint_mod.preflight, {}
+
+    def timed_preflight(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return real(*a, **k)
+        finally:
+            timed[k["label"].split()[0]] = time.perf_counter() - t0
+
+    lint_mod.preflight = timed_preflight
+    try:
+        buf = io.StringIO()
+        dm.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            report = serve_launcher.main(base + LINT_SERVE)
+        _sync(device)
+        rec["serve_s"], serve_gemm = time.perf_counter() - t0, dm.launches
+        out = buf.getvalue()
+        for line in out.splitlines():
+            if "daism-lint" in line or re.match(r"  [A-Z]{3}\d{3} ", line):
+                log(f"  (d) {line.strip()}")
+        if "TIL003" in out or "serve" not in timed:
+            raise SystemExit("the serve preflight did not run for the card")
+        if len(report.completed) != 4 or serve_gemm == 0:
+            raise SystemExit(f"launch.serve: {len(report.completed)} of 4 "
+                             f"requests, {serve_gemm} GEMM launches")
+        del report
+        _free(device)
+        dm.launches = 0
+        t0 = time.perf_counter()
+        _, _, state = train_launcher.main(
+            base + LINT_TRAIN + ["--ckpt", str(ckdir)])
+        _sync(device)
+        rec["train_s"], train_gemm = time.perf_counter() - t0, dm.launches
+        if state.step != 2 or train_gemm == 0 or "train" not in timed:
+            raise SystemExit(f"launch.train: step {state.step}, "
+                             f"{train_gemm} GEMM launches, preflight "
+                             f"{timed}")
+    finally:
+        lint_mod.preflight = real
+        shutil.rmtree(ckdir, ignore_errors=True)
+    _free(device)
+    rec["preflight_s"] = timed
+    log(f"  (d) launch.serve ({LINT_POLICY}, 4 requests, 22 layers): "
+        f"{rec['serve_s']:.2f} s, preflight {timed['serve']:.2f} s, "
+        f"{serve_gemm} GEMM launches; launch.train (2 layers, 2 steps): "
+        f"{rec['train_s']:.2f} s, preflight {timed['train']:.2f} s, "
+        f"{train_gemm} GEMM launches; TIL003 only for a cpu target")
+    return rec, serve_gemm + train_gemm
+
+
 def build_all():
     """nvcc of every kernel source, all started together; prints the
     -Xptxas -v lines and returns ({name: (path, seconds)}, those lines)."""
@@ -3193,8 +3432,9 @@ def build_all():
 
 
 def ptxas_summary(text: str, marks):
-    """{label: (registers, spill store bytes)} over the ptxas entries whose
-    mangled name holds ``marks[label]`` (the largest over the variants)."""
+    """{label: (registers, spill store bytes, static shared memory bytes)}
+    over the ptxas entries whose mangled name holds ``marks[label]`` (the
+    largest over the variants)."""
     import re
 
     out, name = {}, None
@@ -3206,14 +3446,17 @@ def ptxas_summary(text: str, marks):
             continue
         if name is None:
             continue
-        regs, spill = out.get(name, (0, 0))
+        regs, spill, smem = out.get(name, (0, 0, 0))
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
             spill = max(spill, int(m.group(1)))
         m = re.search(r"Used (\d+) registers", line)
         if m:
             regs = max(regs, int(m.group(1)))
-        out[name] = (regs, spill)
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            smem = max(smem, int(m.group(1)))
+        out[name] = (regs, spill, smem)
     return out
 
 
@@ -3341,6 +3584,11 @@ def main(argv=None) -> int:
     rrec, rest_gemm, rest_flash_n = zoo_rest(device)
     rrec["seconds"] = time.perf_counter() - t13
 
+    log("== 14. daism-lint and the launchers' preflight ==")
+    t14 = time.perf_counter()
+    lrec, lint_gemm = lint(device, ptxas)
+    lrec["seconds"] = time.perf_counter() - t14
+
     log("== summary ==")
     log("  serve: " + report.summary().replace("\n", "\n  serve: "))
     for label, r in pre.items():
@@ -3402,6 +3650,14 @@ def main(argv=None) -> int:
         f"decode step p50 {rz['step_ms_p50']:.2f} ms; ring card vs CPU "
         f"{rrec['zamba_ring']:.3g}; (d) card vs CPU "
         + ", ".join(f"{k} {v:.3g}" for k, v in rrec["card_vs_cpu"].items()))
+    log(f"  lint ({lrec['seconds']:.1f} s): --all {lrec['all_s']:.2f} s; "
+        "aborts " + ", ".join(f"{k} {v:.2f} s"
+                              for k, v in lrec["abort_s"].items())
+        + f"; serve {lrec['serve_s']:.2f} s (preflight "
+        f"{lrec['preflight_s']['serve']:.2f} s), train "
+        f"{lrec['train_s']:.2f} s (preflight "
+        f"{lrec['preflight_s']['train']:.2f} s); GEMM shared memory "
+        + ", ".join(f"{k} {v} B" for k, v in lrec["smem"].items()))
     rep = next(r for r in rows if (r["variant"], r["m"], r["k"], r["n"])
                == REPRESENTATIVE)
     xrep = next(r for r in rows if (r["variant"], r["m"], r["k"], r["n"])
@@ -3414,7 +3670,7 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/daism_matmul.py:43",
         "launches": (serve_launches + pre_gemm + train_gemm + gen_gemm
                      + drv_gemm + cnn_gemm + more_gemm + zoo_gemm
-                     + rest_gemm),
+                     + rest_gemm + lint_gemm),
         "max_abs_err": max(max_err, gemm_err, rrec["gemm_err"]),
         "ms": rep["ms"],
         "plain_ms": rep["plain_ms"],

@@ -105,6 +105,10 @@ static_assert(kKc % kBK == 0, "a chunk is a whole number of K steps");
 constexpr int kSkThreads = 128;
 constexpr int kSkMaxRows = 16;  // rows per block (grid z)
 
+// The split-K block's dynamic shared memory: the chunk's multiplier fields,
+// one int4 per (row, k) of its MR rows (daism_matmul_splitk's xs).
+constexpr size_t splitk_smem(int mr) { return sizeof(int4) * mr * kKc; }
+
 template <int V>
 __global__ void __launch_bounds__(kThreads)
     daism_matmul_approx(const uint16_t* __restrict__ a,
@@ -403,7 +407,7 @@ int launch_splitk_mr(const uint16_t* a, const uint16_t* w, float* out,
   const int cols = kSkThreads * NC;
   const dim3 grid((N + cols - 1) / cols, chunks,
                   ex.E * ((M + MR - 1) / MR));
-  constexpr size_t smem = sizeof(int4) * MR * kKc;
+  constexpr size_t smem = splitk_smem(MR);
   if constexpr (smem > 48 * 1024) {  // opt in once per instantiation
     static const cudaError_t opt_in = cudaFuncSetAttribute(
         daism_matmul_splitk<V, MR, NC>,
@@ -472,6 +476,25 @@ ApproxLaunch approx_launch(int variant) {
 // The K chunk of the summation order (the wrapper checks it against its
 // own constant).
 extern "C" int daism_matmul_chunk() { return kKc; }
+
+// Shared memory a block of an approximate variant's path uses, in bytes:
+// `rows` 0 for the tile path (its static arrays, as the compiled PC3_TR
+// kernel reports them), else the dynamic bytes the split-K launch requests
+// for row tiles of `rows` and `cols` columns a thread. -1 for a pair the
+// launcher does not instantiate or a failed query.
+extern "C" long long daism_matmul_smem(int rows, int cols) {
+  if (rows == 0) {
+    cudaFuncAttributes attr;
+    if (cudaFuncGetAttributes(&attr, daism_matmul_approx<daism::kPc3Tr>) !=
+        cudaSuccess)
+      return -1;
+    return static_cast<long long>(attr.sharedSizeBytes);
+  }
+  const bool known = (rows == 1 && cols == 1) ||
+                     ((rows == 4 || rows == kSkMaxRows) &&
+                      (cols == 1 || cols == 4));
+  return known ? static_cast<long long>(splitk_smem(rows)) : -1;
+}
 
 // Approximate variants: `rows` 0 takes the tile path; else the split-K path
 // with row tiles of `rows` (1, 4 or 16) and `cols` columns a thread (1 or

@@ -57,6 +57,14 @@ VARIANT_IDS = {
     Variant.PC3: 4, Variant.PC2_TR: 5, Variant.PC3_TR: 6,
 }
 BLOCK_M = 64  # the tile path's output tile rows (csrc/daism_matmul.cu kBM)
+BLOCK_N = 64  # ... and columns (kBN)
+BLOCK_K = 16  # ... and K step (kBK)
+TILE_THREADS = 256  # a tile block's threads (kThreads)
+TILE_SUB = 4  # outputs a thread along M and along N (kSub)
+SPLIT_K_THREADS = 128  # a split-K block's threads (kSkThreads)
+# the split-K (rows a block, columns a thread) pairs csrc/daism_matmul.cu
+# instantiates (launch_splitk); _plan picks only these
+SPLIT_K_PLANS = ((1, 1), (4, 1), (4, 4), (16, 1), (16, 4))
 # The K chunk of the summation order (csrc/daism_matmul.cu kKc): part of
 # the function, like flash attention's 128-key tile. Chosen by measurement
 # on the H100 (tools/gemm_kc_sweep.py, PERF.md).
@@ -176,6 +184,38 @@ def _plan(m: int, k: int, n: int, variant: Variant,
     wide = (experts * -(-n // 4) * chunks * -(-m // rows)
             >= SPLIT_K_MIN_THREADS)
     return rows, 4 if wide else 1
+
+
+def smem_bytes(plan: Optional[tuple]) -> int:
+    """Shared memory a block of an approximate variant's path uses, in
+    bytes, for a :func:`_plan` result: ``None`` for the tile path's static
+    arrays (``csrc/daism_matmul.cu`` ``daism_matmul_approx``: four
+    multiplier fields of [kBK][kBM + 1] words, three multiplicand fields of
+    [kBK][kBN], the f32 totals of [kSub * kSub][kThreads]), else the
+    dynamic bytes the split-K launch requests (``splitk_smem``: one int4 of
+    fields per row and K column of a chunk), which do not depend on the
+    columns a thread."""
+    if plan is None:
+        return 4 * (4 * BLOCK_K * (BLOCK_M + 1) + 3 * BLOCK_K * BLOCK_N
+                    + TILE_SUB * TILE_SUB * TILE_THREADS)
+    rows, cols = plan
+    if (rows, cols) not in SPLIT_K_PLANS:
+        raise ValueError(f"no split-K kernel for {rows} rows a block and "
+                         f"{cols} columns a thread")
+    return 16 * rows * KC
+
+
+def smem_query(plan: Optional[tuple]) -> int:
+    """:func:`smem_bytes` as the built library reports it (card only): the
+    compiled tile kernel's static shared memory, or the bytes the split-K
+    launcher requests."""
+    lib = load_library("daism_matmul")
+    fn = lib.daism_matmul_smem
+    fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_longlong
+    got = fn(*(plan or (0, 0)))
+    if got < 0:
+        raise RuntimeError(f"daism_matmul_smem{plan or (0, 0)} failed")
+    return got
 
 
 def _exact_plan(m: int, k: int, n: int, path: Optional[str],

@@ -28,7 +28,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core.config import Variant, dtype_name
+from repro_torch.core.config import Variant, dtype_name, torch_dtype
 
 from .approx_product import approx_matmul_tile
 from .build import load_library
@@ -36,8 +36,17 @@ from .daism_matmul import VARIANT_IDS
 
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
+KERNEL_BLOCK_Q = 64  # the CUDA kernels' query tile (csrc/flash_attention.cu kBQ)
 KERNEL_BLOCK_K = 128  # the CUDA kernel's KV tile (csrc/flash_attention.cu kBK)
 KERNEL_MAX_D = 256  # the largest head dim the CUDA kernels take (kMaxD)
+# flash_fwd_tc (bf16 exact): the head dim in 16-column MMA steps, KD of them
+# (TcTile kDp = 16 KD, zero-padded); launch_tc rounds KD above
+# TC_MAX_REG_Q_STEPS up to these, and such dims keep q in shared memory
+# and walk keys in tiles of TC_BLOCK_K_QS (TcTile kQs, kKeys)
+TC_HEAD_STEP = 16
+TC_MAX_REG_Q_STEPS = 8
+TC_WIDE_STEPS = (12, 16)
+TC_BLOCK_K_QS = 64
 _MAX_GRID_Y = 65535
 
 _NEG_INF = -1e30
@@ -72,6 +81,25 @@ def _variant(variant, dtype) -> Optional[Variant]:
             f"(got {dtype_name(dtype)}); run the site exact or "
             "switch the compute dtype")
     return variant
+
+
+def kernel_tiles(d: int, dtype, variant=None) -> tuple:
+    """(query tile, key tile, head dim as computed) of the CUDA kernel that
+    a call on ``dtype`` inputs with ``variant`` launches: ``flash_fwd_tc``
+    for bf16 exact (the head dim zero-padded to its MMA steps,
+    ``csrc/flash_attention.cu`` ``launch_tc``), else ``flash_fwd`` (the head
+    dim whole). Raises as the kernel's entry point does: for a head dim
+    past :data:`KERNEL_MAX_D` or an approximate variant off bf16."""
+    if not 1 <= d <= KERNEL_MAX_D:
+        raise ValueError(f"head dim {d} outside the kernel's 1..{KERNEL_MAX_D}")
+    dtype = torch_dtype(dtype)
+    if _variant(variant, dtype) is not None or dtype != torch.bfloat16:
+        return KERNEL_BLOCK_Q, KERNEL_BLOCK_K, d
+    steps = -(-d // TC_HEAD_STEP)
+    if steps > TC_MAX_REG_Q_STEPS:
+        steps = next(s for s in TC_WIDE_STEPS if steps <= s)
+        return KERNEL_BLOCK_Q, TC_BLOCK_K_QS, TC_HEAD_STEP * steps
+    return KERNEL_BLOCK_Q, KERNEL_BLOCK_K, TC_HEAD_STEP * steps
 
 
 def _check_blocks(sq: int, skv: int, block_q: int, block_k: int) -> None:

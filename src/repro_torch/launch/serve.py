@@ -17,6 +17,14 @@ cheap draft policy, and after a run under an approximate policy the
 per-group site resolution and energy report is printed. ``--shards`` is
 accepted and refused by the engine until tensor-parallel serving is
 ported.
+
+Before any weight is built, the daism-lint preflight
+(``repro_torch.analyze.preflight``, as ``python -m repro_torch.launch.lint``
+runs it) checks the (model, policy, engine) triple for the target
+``--device`` and aborts on an error finding: a rule that matches nothing,
+a tier illegal for the dtype, a KV pool smaller than one request, an
+``EngineConfig`` that does not construct, ``--shards`` above 1.
+``--no-preflight`` skips it.
 """
 import argparse
 import dataclasses
@@ -93,6 +101,8 @@ def main(argv=None):
     p.add_argument("--sync", action="store_true",
                    help="synchronous tick loop (disable the async "
                         "host/device overlap)")
+    p.add_argument("--no-preflight", action="store_true",
+                   help="skip the daism-lint static preflight")
     args = p.parse_args(argv)
 
     import torch
@@ -116,13 +126,27 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg,
                                   daism=build_daism(args.variant, args.backend))
     tiers = parse_tiers(args.tiers) if args.tiers else ()
-    engine_cfg = EngineConfig(
-        num_slots=args.slots, max_seq=args.max_seq,
-        block_size=args.block_size, num_blocks=args.blocks,
-        prefill_chunk=args.prefill_chunk, tiers=tiers,
-        shards=args.shards, preempt=args.preempt,
-        swap_blocks=args.swap_blocks, overlap=not args.sync,
-        spec_draft=args.spec_draft, spec_k=args.spec_k)
+    engine_cfg = engine_error = None
+    try:
+        engine_cfg = EngineConfig(
+            num_slots=args.slots, max_seq=args.max_seq,
+            block_size=args.block_size, num_blocks=args.blocks,
+            prefill_chunk=args.prefill_chunk, tiers=tiers,
+            shards=args.shards, preempt=args.preempt,
+            swap_blocks=args.swap_blocks, overlap=not args.sync,
+            spec_draft=args.spec_draft, spec_k=args.spec_k)
+    except ValueError as e:
+        if args.no_preflight:
+            raise
+        engine_error = e  # reported as SRV000 by the preflight
+    if not args.no_preflight:
+        # static lint of the full (model, policy, engine) triple before the
+        # weights exist on the device: bad rules and tiers, undersized
+        # pools and what the engine refuses abort here
+        from repro_torch.analyze import preflight
+
+        preflight(cfg, engine_cfg=engine_cfg, engine_error=engine_error,
+                  device=args.device, label=f"serve {args.arch}")
     model = build_model(cfg, device=args.device)
     with torch.inference_mode():
         params = model.init(args.seed)

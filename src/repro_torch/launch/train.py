@@ -10,7 +10,10 @@ device: ``--devices`` and ``--mesh`` take only one (``0``/``1``,
 ``auto``/``1x1``). Fault tolerance: re-running the same command resumes
 from the newest complete checkpoint in ``--ckpt``
 (``runtime/fault_tolerance.py``), which the JAX package's ``restore``
-reads as well.
+reads as well. Before any weight is built, the daism-lint preflight
+(``repro_torch.analyze.preflight``) checks the (model, policy) pair for the
+target ``--device`` and aborts on an error finding; ``--no-preflight``
+skips it.
 """
 import argparse
 import dataclasses
@@ -81,8 +84,13 @@ def main(argv=None):
             cfg, daism=DaismConfig(variant=Variant(args.daism),
                                    backend=Backend.JNP))
     if not args.no_preflight:
-        print("preflight: daism-lint is not ported yet (ROADMAP.md section "
-              "A, item 7); not run")
+        # static lint of the (model, policy) pair before any weight exists:
+        # zero-match rules and illegal backends fail here in seconds
+        # (launch/lint.py standalone)
+        from repro_torch.analyze import preflight
+
+        preflight(cfg, serving=False, device=args.device,
+                  label=f"train {args.arch}")
 
     art = build_artifacts(cfg, device=args.device,
                           opt_cfg=AdamWConfig(lr=args.lr),
