@@ -179,13 +179,35 @@ and prints the kernels' times beside their bounds. Phases:
               launcher requests (the library's daism_matmul_smem); (c)
               ``launch.serve.main`` at TinyLlama's full width with a rule
               that matches nothing (POL001), a pool smaller than one
-              request (SRV002) and ``--shards 2`` (SRV000), and
+              request (SRV002), ``--shards 4`` over 2 decode rows (SRV007)
+              and ``--shards 2`` on one card (more shards than cards), and
               ``launch.train.main`` with the first, each raise SystemExit
               naming the code, with no new CUDA byte and no kernel launch;
               (d) a clean serve (PC3_TR on the kernel, 4 requests, full
               depth) and train (2 layers, 2 steps) run through the
               preflight, whose own wall time is printed beside the
               launcher's; TIL003 fires for a cpu target and not the card.
+15. mesh    — multi-device serving's code at world size 1: (a) a 1-rank
+              NCCL process group on cuda:0 (launch/mesh.py) and a 1-way
+              ``model`` mesh; (b) TinyLlama as in phase 4 (22 layers, 8
+              requests, both tiers) through ``ServeEngine(..., mesh=)``:
+              tokens equal phase 4's, GEMM launches equal, the NCCL
+              collectives the sharded layers issue counted, tok/s and TTFT
+              beside phase 4's; (c) Qwen3-MoE (2 of 94 layers) served
+              under the mesh, so its MoE layers take the expert-parallel
+              path: the capacity of each step kind, the expert kernel at
+              (128, C, 4096, 1536) and (128, C, 1536, 4096) against its
+              plain version and timed beside its bound, a forward whose
+              capacity drops nothing against the dense path (phase 5's
+              PREFILL_APPROX_REL), TTFT, tok/s and step p50 beside phase
+              12 (a)'s dense serve; (d) the GEMMs one rank of a 4-way
+              tensor-parallel TinyLlama runs (MESH_GEMMS, M = 4 and 128)
+              against the plain version, timed beside the bound; (e)
+              ``compressed_psum`` in each mode and a one-stage
+              ``pipeline_apply`` on CUDA tensors over the NCCL group:
+              int8 and none equal the CPU's bit for bit, bf16 within one
+              bf16 rounding, the pipeline equal to the sequential loop.
+              The process group is destroyed at the end.
 
 Every check raises on failure and nothing is caught (checks 3c, 6, 9 and
 14c expect their errors), so any failure exits non-zero before the final
@@ -474,11 +496,24 @@ ZOO_REST_CPU_APPROX_REL = {"whisper_large_v3": 0.08, "xlstm_1_3b": 0.1,
 LINT_BOGUS = "*/bogus/*=exact,*=pc3_tr:pallas"
 LINT_ABORTS = ((["--policy", LINT_BOGUS], "POL001"),
                (["--blocks", "1", "--max-seq", "2048"], "SRV002"),
-               (["--shards", "2"], "SRV000"))
+               (["--shards", "4"], "SRV007"),
+               (["--shards", "2"], "does not divide the 1 available"))
 LINT_POLICY = "*=pc3_tr:pallas"
 LINT_SERVE = ["--policy", LINT_POLICY, "--requests", "4"]
 LINT_TRAIN = ["--layers", "2", "--steps", "2", "--batch", "2", "--seq",
               "64", "--policy", LINT_POLICY, "--log-every", "1"]
+
+
+# phase 15: multi-device serving's code at world size 1 (one card). (d)
+# the GEMMs of one rank of a 4-way tensor-parallel TinyLlama (label, K,
+# N): q, k/v, o, wi/wg, ffn/wo and the vocab-parallel lm_head, at a decode
+# step's M = 4 and a prefill chunk's M = 128
+MESH_GEMMS = (("q", 2048, 512), ("k/v", 2048, 64), ("o", 512, 2048),
+              ("wi/wg", 2048, 1408), ("ffn/wo", 1408, 2048),
+              ("lm_head", 2048, 8000))
+MESH_M = (4, 128)
+# (c) the no-drop forward's tokens (B, S) against the dense MoE
+MESH_MOE_TOKENS = (1, 128)
 
 
 def gemm_rtol(k: int) -> float:
@@ -2453,60 +2488,75 @@ def zoo_experts(device):
     from repro_torch.core.config import Variant
     from repro_torch.kernels import daism_matmul as dm
 
-    var = Variant.PC3_TR
     gen = torch.Generator(device=device).manual_seed(14)
     rows = []
     for label, e, k, n, shared in ZOO_EXPERT_GEMMS:
         w = torch.randn((e, k, n), generator=gen, device=device).to(
             torch.bfloat16)
         for c in ZOO_EXPERT_C:
-            if shared:  # the dense MoE's broadcast tokens: expert stride 0
-                x = torch.randn((c, k), generator=gen, device=device).to(
-                    torch.bfloat16)[None].expand(e, c, k)
-            else:
-                x = torch.randn((e, c, k), generator=gen, device=device).to(
-                    torch.bfloat16)
-            ms, got = cuda_time_ms(
-                lambda: dm.daism_matmul_experts_kernel(x, w, var), 3)
-            per = torch.stack([dm.daism_matmul_kernel(x[i].contiguous(), w[i],
-                                                      var) for i in range(e)])
-            torch.cuda.synchronize()
-            if not torch.equal(got.view(torch.int32), per.view(torch.int32)):
-                raise SystemExit(f"(c) {label} C={c}: the expert launch "
-                                 "differs from per-expert 2-D launches")
-            plain_ms = []
-            for i in (0, e - 1):
-                a = x[i].contiguous()
-                ordered = dm.daism_matmul_ordered(a, w[i], var)
-                t, ref = cuda_time_ms(lambda: dm.daism_matmul_plain(
-                    a, w[i], var), 1, warmup=0)
-                plain_ms.append(t)
-                if not torch.equal(got[i].view(torch.int32),
-                                   ordered.view(torch.int32)):
-                    raise SystemExit(f"(c) {label} C={c}: expert {i} differs "
-                                     "from daism_matmul_ordered")
-                gemm_held(got[i], ref, a, w[i], f"(c) {label} C={c} e={i}")
-            nbytes = (2 * (c * k if shared else e * c * k) + 2 * e * k * n
-                      + 4 * e * c * n)
-            ops = OPS_PER_MAC["pc3_tr"] * e * c * k * n
-            b_ms = max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3
-            b_by = ("operations" if ops / INT32_OPS_PER_S
-                    >= nbytes / HBM_BYTES_PER_S else "bytes")
-            plan = dm._plan(c, k, n, var, experts=e)
-            path = "tile" if plan is None else f"splitk {plan}"
-            rows.append(dict(label=label, e=e, c=c, k=k, n=n, ms=ms,
-                             plain_ms_per_expert=sum(plain_ms) / 2,
-                             bound_ms=b_ms, bound_by=b_by, path=path))
-            log(f"  (c) {label:12s} (E={e}, C={c}, {k}, {n}) pc3_tr, {path}: "
-                f"kernel {ms:9.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-                f"{b_ms / ms * 100:5.1f}% of bound; all {e} experts equal "
-                f"their 2-D launches bit for bit, experts 0 and {e - 1} equal "
-                f"daism_matmul_ordered and the plain version "
-                f"({sum(plain_ms) / 2:.1f} ms an expert) within gemm_rtol")
-            del x, got, per
+            rows.append(expert_row(device, gen, "(c)", label, w, c, shared))
         del w
     _free(device)
     return rows
+
+
+def expert_row(device, gen, tag, label, w, c, shared):
+    """The expert GEMM (E, C, K) @ (E, K, N) in PC3_TR on random tokens
+    (broadcast over the experts when ``shared``): one launch for all
+    experts, bit for bit against E 2-D launches and (first and last
+    expert) against daism_matmul_ordered, within gemm_rtol(K) of the plain
+    version on those two, timed against its bound; the row."""
+    import torch
+
+    from repro_torch.core.config import Variant
+    from repro_torch.kernels import daism_matmul as dm
+
+    var = Variant.PC3_TR
+    e, k, n = w.shape
+    if shared:  # the dense MoE's broadcast tokens: expert stride 0
+        x = torch.randn((c, k), generator=gen, device=device).to(
+            torch.bfloat16)[None].expand(e, c, k)
+    else:
+        x = torch.randn((e, c, k), generator=gen, device=device).to(
+            torch.bfloat16)
+    ms, got = cuda_time_ms(
+        lambda: dm.daism_matmul_experts_kernel(x, w, var), 3)
+    per = torch.stack([dm.daism_matmul_kernel(x[i].contiguous(), w[i],
+                                              var) for i in range(e)])
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int32), per.view(torch.int32)):
+        raise SystemExit(f"{tag} {label} C={c}: the expert launch "
+                         "differs from per-expert 2-D launches")
+    plain_ms, err = [], 0.0
+    for i in (0, e - 1):
+        a = x[i].contiguous()
+        ordered = dm.daism_matmul_ordered(a, w[i], var)
+        t, ref = cuda_time_ms(lambda: dm.daism_matmul_plain(
+            a, w[i], var), 1, warmup=0)
+        plain_ms.append(t)
+        if not torch.equal(got[i].view(torch.int32),
+                           ordered.view(torch.int32)):
+            raise SystemExit(f"{tag} {label} C={c}: expert {i} differs "
+                             "from daism_matmul_ordered")
+        err = max(err, gemm_held(got[i], ref, a, w[i],
+                                 f"{tag} {label} C={c} e={i}")[0])
+    nbytes = (2 * (c * k if shared else e * c * k) + 2 * e * k * n
+              + 4 * e * c * n)
+    ops = OPS_PER_MAC["pc3_tr"] * e * c * k * n
+    b_ms = max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3
+    b_by = ("operations" if ops / INT32_OPS_PER_S
+            >= nbytes / HBM_BYTES_PER_S else "bytes")
+    plan = dm._plan(c, k, n, var, experts=e)
+    path = "tile" if plan is None else f"splitk {plan}"
+    log(f"  {tag} {label:12s} (E={e}, C={c}, {k}, {n}) pc3_tr, {path}: "
+        f"kernel {ms:9.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+        f"{b_ms / ms * 100:5.1f}% of bound; all {e} experts equal "
+        f"their 2-D launches bit for bit, experts 0 and {e - 1} equal "
+        f"daism_matmul_ordered and the plain version "
+        f"({sum(plain_ms) / 2:.1f} ms an expert) within gemm_rtol")
+    return dict(label=label, e=e, c=c, k=k, n=n, ms=ms,
+                plain_ms_per_expert=sum(plain_ms) / 2, bound_ms=b_ms,
+                bound_by=b_by, path=path, max_abs_err=err)
 
 
 def zoo_dense(device):
@@ -3409,6 +3459,270 @@ def lint(device, ptxas: str):
     return rec, serve_gemm + train_gemm
 
 
+# ---------------------------------------------------------------------------
+# phase 15: multi-device serving at world size 1
+# ---------------------------------------------------------------------------
+
+def mesh_serve_tinyllama(device, cfg, mesh, base):
+    """(b): phase 4's serve through the engine under ``mesh``; returns
+    (record, GEMM launches)."""
+    import torch
+
+    from repro_torch.kernels import daism_matmul as dm
+    from repro_torch.models.registry import build_model
+    from repro_torch.parallel import sharding
+    from repro_torch.serve import EngineConfig, ServeEngine
+
+    model = build_model(cfg, device=device)
+    with torch.inference_mode():
+        params = model.init(seed=0)
+    ecfg = EngineConfig(num_slots=4, block_size=16, prefill_chunk=32,
+                        max_seq=128, tiers=TIERS, shards=1)
+    engine = ServeEngine(model, params, ecfg, mesh=mesh, device=device)
+    before = dict(sharding.COLLECTIVES)
+    dm.launches = 0
+    rep = engine.run(serve_requests(cfg.vocab))
+    _sync(device)
+    launches = dm.launches
+    coll = {k: v - before[k] for k, v in sharding.COLLECTIVES.items()}
+    got = {s.request_id: s.output for s in rep.completed}
+    want = {s.request_id: s.output for s in base["report"].completed}
+    if got != want:
+        raise SystemExit(f"(b) tokens differ from phase 4's: "
+                         f"{[k for k in want if got.get(k) != want[k]]}")
+    if launches != base["launches"]:
+        raise SystemExit(f"(b) {launches} GEMM launches; phase 4 made "
+                         f"{base['launches']}")
+    steps = sum(rep.group_steps.values())
+    b = base["report"]
+    log(f"  (b) tinyllama_1_1b ({cfg.n_layers} layers) under the mesh: "
+        f"{len(got)} requests' tokens equal phase 4's; daism_matmul "
+        f"launches {launches} == phase 4's; NCCL collectives {coll} over "
+        f"{steps} steps; {rep.tokens_per_s:.1f} decode tok/s, TTFT p50 "
+        f"{rep.ttft_p50_ms:.1f} ms, step p50 {rep.step_p50_ms:.2f} ms (phase "
+        f"4: {b.tokens_per_s:.1f} tok/s, TTFT p50 {b.ttft_p50_ms:.1f} ms, "
+        f"step p50 {b.step_p50_ms:.2f} ms)")
+    rec = dict(tok_s=rep.tokens_per_s, ttft_p50_ms=rep.ttft_p50_ms,
+               step_p50_ms=rep.step_p50_ms, collectives=coll, steps=steps,
+               base_tok_s=b.tokens_per_s, base_ttft_p50_ms=b.ttft_p50_ms,
+               base_step_p50_ms=b.step_p50_ms)
+    del engine, params, model
+    _free(device)
+    return rec, launches
+
+
+def mesh_moe(device, mesh, dense):
+    """(c): Qwen3-MoE through the expert-parallel path under ``mesh``;
+    returns (record, GEMM launches of the serve)."""
+    import torch
+
+    from repro_torch.models.moe import _capacity
+    from repro_torch.models.registry import build_model
+    from repro_torch.parallel.sharding import Sharder, base_rules, use_sharder
+    from repro_torch.serve import EngineConfig, Request, ServeEngine
+    from repro_torch.kernels import daism_matmul as dm
+
+    model, params = _zoo_model(device, "qwen3_moe_235b", 2, GEN_POLICY)
+    cfg = model.cfg
+    caps = {"prefill": _capacity(ZOO_ENGINE["num_slots"]
+                                 * ZOO_ENGINE["prefill_chunk"], cfg),
+            "decode": _capacity(ZOO_ENGINE["num_slots"], cfg)}
+    log(f"  (c) EP capacity C (capacity_factor {cfg.capacity_factor}, top-"
+        f"{cfg.topk} of {cfg.n_experts}): " + ", ".join(
+            f"{k} ({ZOO_ENGINE['num_slots']} rows x "
+            f"{ZOO_ENGINE['prefill_chunk'] if k == 'prefill' else 1} tokens)"
+            f" C = {c}" for k, c in caps.items()))
+    gen = torch.Generator(device=device).manual_seed(15)
+    rows, err = [], 0.0
+    for label, e, k, n, _ in ZOO_EXPERT_GEMMS[:2]:
+        w = torch.randn((e, k, n), generator=gen, device=device).to(
+            torch.bfloat16)
+        for kind, c in caps.items():
+            row = expert_row(device, gen, "(c)", f"{label} {kind}", w, c,
+                             False)
+            err = max(err, row["max_abs_err"])
+            rows.append(row)
+        del w
+    _free(device)
+
+    # a forward whose capacity drops nothing (C = tokens) against the dense
+    # MoE (no sharder) on the same weights and tokens
+    nodrop = build_model(dataclasses.replace(
+        cfg, capacity_factor=cfg.n_experts / cfg.topk), device=device)
+    toks = torch.randint(0, cfg.vocab, MESH_MOE_TOKENS, device=device,
+                         generator=torch.Generator(device=device).manual_seed(
+                             16))
+    sharder = Sharder(mesh, base_rules(False, serve=True))
+    with torch.inference_mode():
+        with use_sharder(sharder):
+            ep, _ = nodrop.forward(params, {"tokens": toks})
+        ref, _ = model.forward(params, {"tokens": toks})
+    _sync(device)
+    rel, agree, clear_ok, n_clear = _logit_agreement(ep, ref)
+    log(f"  (c) no-drop EP forward (C = {_capacity(toks.numel(), nodrop.cfg)}"
+        f" for {toks.numel()} tokens) vs the dense MoE: max |diff| / max "
+        f"|ref| {rel:.4g} (bound {PREFILL_APPROX_REL:g}); greedy tokens agree "
+        f"on {agree * 100:.1f}%, on all {n_clear} clear of the deviation: "
+        f"{clear_ok}")
+    if rel > PREFILL_APPROX_REL or not clear_ok \
+            or not torch.isfinite(ep).all():
+        raise SystemExit("(c) the EP forward departs from the dense MoE")
+    del ep, ref, nodrop
+
+    rng = __import__("numpy").random.default_rng(12)
+    prompts = [rng.integers(0, cfg.vocab, size=n).tolist()
+               for n in ZOO_PROMPTS]
+    engine = ServeEngine(model, params, EngineConfig(**ZOO_ENGINE),
+                         mesh=mesh, device=device)
+    dm.launches = 0
+    rep = engine.run([Request(prompt=p, max_new_tokens=ZOO_GEN)
+                      for p in prompts])
+    _sync(device)
+    launches = dm.launches
+    expected = sum(rep.group_steps[g.label] * approx_launches_per_step(
+        g.model) for g in engine.groups.values())
+    if launches != expected or len(rep.completed) != len(prompts) or any(
+            len(st.output) != ZOO_GEN for st in rep.completed):
+        raise SystemExit(f"(c) EP serve: {len(rep.completed)} requests, "
+                         f"{launches} GEMM launches ({expected} implied)")
+    log(f"  (c) EP serve of phase 12 (a)'s requests: {rep.tokens_per_s:.1f} "
+        f"decode tok/s, TTFT p50 {rep.ttft_p50_ms:.1f} ms, step p50 "
+        f"{rep.step_p50_ms:.2f} ms (phase 12 (a), dense: "
+        f"{dense['tok_s']:.1f} tok/s, TTFT p50 {dense['ttft_p50_ms']:.1f} "
+        f"ms, step p50 {dense['step_p50_ms']:.2f} ms); daism_matmul "
+        f"launches {launches} as the steps imply; peak "
+        f"{_peak_gib(device):.2f} GiB")
+    rec = dict(caps=caps, experts=rows, nodrop_rel=rel,
+               tok_s=rep.tokens_per_s, ttft_p50_ms=rep.ttft_p50_ms,
+               step_p50_ms=rep.step_p50_ms, dense=dense, gemm_err=err)
+    del engine, params, model
+    _free(device)
+    return rec, launches
+
+
+def mesh_gemms(device):
+    """(d): one rank's GEMMs of a 4-way tensor-parallel TinyLlama, PC3_TR,
+    held against the plain version and timed beside the bound; (rows,
+    max |kernel - plain|)."""
+    import torch
+
+    from repro_torch.kernels import daism_matmul as dm
+
+    gen = torch.Generator(device=device).manual_seed(17)
+    rows, max_err = [], 0.0
+    for label, k, n in MESH_GEMMS:
+        for m in MESH_M:
+            a = torch.randn((m, k), generator=gen, device=device).to(
+                torch.bfloat16)
+            w = torch.randn((k, n), generator=gen, device=device).to(
+                torch.bfloat16)
+            ms, got = cuda_time_ms(
+                lambda: dm.daism_matmul_kernel(a, w, "pc3_tr"), 10)
+            plain_ms, ref = cuda_time_ms(lambda: dm.daism_matmul_plain(
+                a, w, "pc3_tr"), 1, warmup=0)
+            err, rel = gemm_held(got, ref, a, w, f"(d) {label} ({m},{k},{n})")
+            max_err = max(max_err, err)
+            b_ms, b_by, _ = bound("pc3_tr", m, k, n)
+            rows.append(dict(site=label, m=m, k=k, n=n, ms=ms,
+                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=None))
+            log(f"  (d) pc3_tr {label:8s} ({m:4d}, {k:4d}, {n:4d}): kernel "
+                f"{ms:8.4f} ms, plain {plain_ms:8.2f} ms, bound {b_ms:.4f} ms "
+                f"({b_by}), {b_ms / ms * 100:5.1f}% of bound, |kernel - "
+                f"plain| {rel:.3g} (|a|@|w|)")
+    _free(device)
+    return rows, max_err
+
+
+def mesh_collectives(device):
+    """(e): compressed_psum and a one-stage pipeline_apply on CUDA tensors
+    over the NCCL group, against the CPU."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.grad_compress import compressed_psum
+    from repro_torch.parallel.pipeline import pipeline_apply
+
+    gen = torch.Generator().manual_seed(18)
+    grads = {"w": torch.randn((2048, 512), generator=gen),
+             "b": torch.randn((512,), generator=gen) * 1e-3}
+    data = make_mesh((1,), ("data",))
+    out = {}
+    for mode in ("none", "bf16", "int8"):
+        card = compressed_psum({k: v.to(device) for k, v in grads.items()},
+                               "data", mode, mesh=data)
+        cpu = compressed_psum(grads, "data", mode, mesh={"data": 1})
+        for k in grads:
+            got, want = card[k].cpu(), cpu[k]
+            if mode == "bf16":
+                bad = ((got - want).abs() > 2.0**-7 * want.abs()).any()
+            else:
+                bad = not torch.equal(got, want)
+            if bad or got.dtype != want.dtype:
+                raise SystemExit(f"(e) compressed_psum {mode} {k}: the card "
+                                 "differs from the CPU")
+        out[mode] = float(max((card[k].cpu() - grads[k]).abs().max()
+                              for k in grads))
+    layers = {"w": torch.randn((4, 256, 256), generator=gen) / 16,
+              "b": torch.randn((4, 256), generator=gen) / 10}
+    x = torch.randn((32, 256), generator=gen)
+
+    def layer(p, h):
+        return torch.tanh(h @ p["w"] + p["b"])
+
+    on_card = {k: v.to(device) for k, v in layers.items()}
+    piped = pipeline_apply(layer, on_card, x.to(device),
+                           make_mesh((1,), ("stage",)), n_microbatches=4)
+    # the sequential loop microbatch by microbatch (the library GEMM picks
+    # its algorithm by M, so the whole batch at once is another rounding)
+    seq = []
+    for mb in x.to(device).chunk(4):
+        for i in range(4):
+            mb = layer({k: v[i] for k, v in on_card.items()}, mb)
+        seq.append(mb)
+    seq = torch.cat(seq)
+    _sync(device)
+    if not torch.equal(piped, seq):
+        raise SystemExit("(e) the one-stage pipeline differs from the "
+                         "sequential loop")
+    log("  (e) compressed_psum on CUDA tensors over the NCCL group: int8 and "
+        "none equal the CPU bit for bit, bf16 within one bf16 rounding; "
+        "|mean - grad| per mode " + ", ".join(f"{k} {v:.3g}"
+                                            for k, v in out.items())
+        + "; a one-stage pipeline_apply (4 layers, 4 microbatches) equals "
+        "the sequential loop over the same microbatches bit for bit")
+    return out
+
+
+def mesh_phase(device, cfg, base, dense_moe):
+    """Phase 15; returns (record, GEMM launches of the serves)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import (backend_for, init_distributed,
+                                         make_mesh)
+
+    log(f"  {nvidia_smi_line()}")
+    t0 = time.perf_counter()
+    dev = init_distributed(device)
+    mesh = make_mesh((1,), ("model",))
+    log(f"  (a) {dist.get_backend()} process group, world size "
+        f"{dist.get_world_size()}, rank {dist.get_rank()} on {dev}; mesh "
+        f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if dist.get_backend() != backend_for(device) or dev != device:
+        raise SystemExit(f"(a) {dist.get_backend()} on {dev}")
+    try:
+        rec = {}
+        rec["tinyllama"], tl_gemm = mesh_serve_tinyllama(device, cfg, mesh,
+                                                         base)
+        rec["moe"], moe_gemm = mesh_moe(device, mesh, dense_moe)
+        rec["gemms"], rec["gemm_err"] = mesh_gemms(device)
+        rec["compressed_psum"] = mesh_collectives(device)
+    finally:
+        dist.destroy_process_group()
+    return rec, tl_gemm + moe_gemm
+
+
 def build_all():
     """nvcc of every kernel source, all started together; prints the
     -Xptxas -v lines and returns ({name: (path, seconds)}, those lines)."""
@@ -3589,6 +3903,13 @@ def main(argv=None) -> int:
     lrec, lint_gemm = lint(device, ptxas)
     lrec["seconds"] = time.perf_counter() - t14
 
+    log("== 15. mesh: multi-device serving's code on one card ==")
+    t15 = time.perf_counter()
+    mrec, mesh_gemm = mesh_phase(
+        device, cfg, {"report": report, "launches": serve_launches},
+        zrec["moe"])
+    mrec["seconds"] = time.perf_counter() - t15
+
     log("== summary ==")
     log("  serve: " + report.summary().replace("\n", "\n  serve: "))
     for label, r in pre.items():
@@ -3658,6 +3979,15 @@ def main(argv=None) -> int:
         f"{lrec['train_s']:.2f} s (preflight "
         f"{lrec['preflight_s']['train']:.2f} s); GEMM shared memory "
         + ", ".join(f"{k} {v} B" for k, v in lrec["smem"].items()))
+    mt, mm = mrec["tinyllama"], mrec["moe"]
+    log(f"  mesh ({mrec['seconds']:.1f} s): (b) TinyLlama under a 1-way mesh "
+        f"{mt['tok_s']:.1f} decode tok/s, TTFT p50 {mt['ttft_p50_ms']:.1f} "
+        f"ms (phase 4: {mt['base_tok_s']:.1f}, {mt['base_ttft_p50_ms']:.1f} "
+        f"ms), NCCL collectives {mt['collectives']}; (c) Qwen3-MoE EP "
+        f"{mm['tok_s']:.1f} tok/s, TTFT p50 {mm['ttft_p50_ms']:.1f} ms, step "
+        f"p50 {mm['step_p50_ms']:.2f} ms (dense {mm['dense']['tok_s']:.1f} "
+        f"tok/s, {mm['dense']['ttft_p50_ms']:.1f} ms, "
+        f"{mm['dense']['step_p50_ms']:.2f} ms), capacity {mm['caps']}")
     rep = next(r for r in rows if (r["variant"], r["m"], r["k"], r["n"])
                == REPRESENTATIVE)
     xrep = next(r for r in rows if (r["variant"], r["m"], r["k"], r["n"])
@@ -3670,8 +4000,9 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/daism_matmul.py:43",
         "launches": (serve_launches + pre_gemm + train_gemm + gen_gemm
                      + drv_gemm + cnn_gemm + more_gemm + zoo_gemm
-                     + rest_gemm + lint_gemm),
-        "max_abs_err": max(max_err, gemm_err, rrec["gemm_err"]),
+                     + rest_gemm + lint_gemm + mesh_gemm),
+        "max_abs_err": max(max_err, gemm_err, rrec["gemm_err"],
+                           mrec["gemm_err"], mrec["moe"]["gemm_err"]),
         "ms": rep["ms"],
         "plain_ms": rep["plain_ms"],
         "bound_ms": rep["bound_ms"],
@@ -3693,6 +4024,8 @@ def main(argv=None) -> int:
         | {"shape": [xrep["m"], xrep["k"], xrep["n"]]},
         "experts": zrec["experts"],
         "zoo_rest": rrec["gemms"],
+        "mesh": mrec["gemms"],
+        "mesh_experts": mrec["moe"]["experts"],
     }, {
         "name": "flash_attention",
         "route": "cuda",

@@ -25,8 +25,7 @@ TIL005   error     flash-attention site the kernel refuses (a DAISM
 RCP001   warning   policy shatters a layer stack into many segments
 RCP002   warning   dispatcher cache would hold many kernel variants
 ENE001   info      estimated multiply-energy summary
-SRV000   error     EngineConfig rejected at construction, or a feature
-                   the port's engine refuses (``shards > 1``)
+SRV000   error     EngineConfig rejected at construction
 SRV001   error*    model ``window`` incompatible with the paged cache
 SRV002   error*    KV pool cannot hold one max-length request
 SRV003   warning   KV pool oversubscribed vs expected concurrency
@@ -402,11 +401,6 @@ def check_serving(graph: SiteGraph, engine_cfg=None, *,
             f"({engine_cfg.shards} shards): the Sharder's divisibility "
             "fallback silently replicates the KV pool and decode batch "
             "instead of sharding them — size both as multiples of shards"))
-    try:
-        # the engine's own refusal, found here before any weight exists
-        engine_cfg.check_ported()
-    except NotImplementedError as e:
-        findings.append(engine_config_finding(e))
     if (engine_cfg.preempt and engine_cfg.swap_blocks
             and engine_cfg.swap_blocks < engine_cfg.max_blocks_per_seq):
         findings.append(Finding(
@@ -533,6 +527,5 @@ def run_checkers(graph: SiteGraph, engine_cfg=None, *,
 
 
 def engine_config_finding(err: Exception) -> Finding:
-    """Wrap an EngineConfig construction error (or the engine's refusal of
-    a feature that is not ported) as a finding (SRV000)."""
+    """Wrap an EngineConfig construction error as a finding (SRV000)."""
     return Finding("SRV000", "error", "serving", str(err))

@@ -163,7 +163,7 @@ def restore(ckpt_dir: str, step: int, like: Any,
     if shardings is not None:
         raise NotImplementedError(
             "restore onto a mesh is not ported yet (ROADMAP.md section A, "
-            "item 8); one card takes shardings=None")
+            "item 8b); one card takes shardings=None")
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     if not os.path.exists(os.path.join(path, SENTINEL)):
         raise FileNotFoundError(f"incomplete/missing checkpoint {path}")

@@ -14,20 +14,29 @@ The flags are the JAX launcher's (``repro.launch.serve``): ``--preempt``
 (with ``--blocks`` to bound the pool) swaps requests out under page
 exhaustion, ``--spec-draft``/``--spec-k`` decode speculatively with a
 cheap draft policy, and after a run under an approximate policy the
-per-group site resolution and energy report is printed. ``--shards`` is
-accepted and refused by the engine until tensor-parallel serving is
-ported.
+per-group site resolution and energy report is printed.
+
+``--shards N`` serves tensor-parallel over an N-way ``model`` mesh axis,
+one rank a device: on ``--device cpu`` the launcher spawns N ``gloo`` ranks
+(``--devices`` says how many CPU devices there are, N by default); on the
+card it needs N cards, and runs either under ``torchrun --nproc-per-node N``
+or spawns one ``nccl`` rank a card itself. Every rank builds the same
+weights from ``--seed`` and keeps its shards; rank 0 prints.
 
 Before any weight is built, the daism-lint preflight
 (``repro_torch.analyze.preflight``, as ``python -m repro_torch.launch.lint``
 runs it) checks the (model, policy, engine) triple for the target
 ``--device`` and aborts on an error finding: a rule that matches nothing,
 a tier illegal for the dtype, a KV pool smaller than one request, an
-``EngineConfig`` that does not construct, ``--shards`` above 1.
-``--no-preflight`` skips it.
+``EngineConfig`` that does not construct, KV pages or decode rows that
+``--shards`` does not divide. ``--no-preflight`` skips it.
 """
 import argparse
+import contextlib
 import dataclasses
+import io
+import os
+import sys
 import warnings
 
 
@@ -80,8 +89,14 @@ def main(argv=None):
     p.add_argument("--backend", default="jnp",
                    help="daism backend for approximate variants")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--devices", type=int, default=0,
+                   help="CPU devices (gloo ranks) available to --shards "
+                        "(0 = as many as --shards)")
     p.add_argument("--shards", type=int, default=1,
-                   help="tensor-parallel serving (not ported yet)")
+                   help="tensor-parallel serving: shard params, KV pages "
+                        "and every policy group's step over an N-way "
+                        "'model' mesh axis (N must divide --blocks and "
+                        "--slots)")
     p.add_argument("--preempt", action="store_true",
                    help="optimistic admission + preemption: swap the "
                         "lowest-priority running request's KV pages to a "
@@ -106,15 +121,20 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     import torch
+    import torch.distributed as dist
 
     from repro_torch.configs import get_config
     from repro_torch.models.registry import build_model
-    from repro_torch.serve import (EngineConfig, ServeEngine, parse_tiers,
-                                   poisson_requests, synthetic_requests)
+    from repro_torch.serve import EngineConfig, ServeEngine, parse_tiers
 
     cfg = get_config(args.arch)
     if args.smoke:
-        cfg = cfg.smoke(window=0)  # paged pools need non-ring caches
+        overrides = {"window": 0}  # paged pools need non-ring caches
+        if args.shards > 1:
+            # the head-local paged attention needs kv heads divisible by
+            # the mesh axis; the default smoke config has 2
+            overrides["kv_heads"] = args.shards
+        cfg = cfg.smoke(**overrides)
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     if args.policy:
@@ -147,10 +167,36 @@ def main(argv=None):
 
         preflight(cfg, engine_cfg=engine_cfg, engine_error=engine_error,
                   device=args.device, label=f"serve {args.arch}")
-    model = build_model(cfg, device=args.device)
+    if args.shards > 1 and not dist.is_initialized() \
+            and "WORLD_SIZE" not in os.environ:
+        # linted once, here: the ranks skip the preflight
+        argv = sys.argv[1:] if argv is None else list(argv)
+        return _spawn(args, argv + ["--no-preflight"])
+    device, mesh, quiet = args.device, None, contextlib.nullcontext()
+    if args.shards > 1:
+        from repro_torch.launch.mesh import init_distributed, make_mesh
+
+        device = init_distributed(args.device)
+        if dist.get_world_size() != args.shards:
+            raise SystemExit(
+                f"--shards {args.shards} needs as many ranks; the process "
+                f"group has {dist.get_world_size()}")
+        mesh = make_mesh((args.shards,), ("model",))
+        if dist.get_rank():
+            quiet = contextlib.redirect_stdout(io.StringIO())
+    model = build_model(cfg, device=device)
     with torch.inference_mode():
         params = model.init(args.seed)
-    engine = ServeEngine(model, params, engine_cfg, device=args.device)
+    engine = ServeEngine(model, params, engine_cfg, mesh=mesh, device=device)
+    with quiet:
+        return _serve(args, p, cfg, tiers, engine)
+
+
+def _serve(args, p, cfg, tiers, engine):
+    """Run the workload through ``engine``, print the timeline and the
+    report, and hold the smoke gates."""
+    from repro_torch.serve import poisson_requests, synthetic_requests
+
     tier_names = [name for name, _ in tiers]
     if args.poisson > 0:
         requests = poisson_requests(
@@ -221,6 +267,13 @@ def main(argv=None):
     if args.smoke and args.tiers:
         print(f"SMOKE-OK: {report.policy_groups} policy groups served "
               "mixed-tier traffic")
+    if args.smoke and args.shards > 1:
+        if report.shards != args.shards:
+            raise SystemExit(
+                f"smoke --shards {args.shards} ran on {report.shards} "
+                "shard(s)")
+        print(f"SMOKE-OK: served tensor-parallel over {report.shards} "
+              "shards")
     if args.smoke and args.preempt and args.blocks:
         # an explicitly undersized pool (--blocks) must actually exercise
         # the swap path; auto-sized pools never exhaust
@@ -249,6 +302,33 @@ def main(argv=None):
               f"verify step(s), accept rate {report.spec_accept_rate:.2f}, "
               f"{report.spec_tokens_per_step:.2f} tokens/step")
     return report
+
+
+def _rank_main(rank, argv):
+    """One rank of a ``--shards`` run (the launcher itself, in the group
+    :func:`_spawn` brought up): its ``{request_id: output}``."""
+    return {s.request_id: list(s.output) for s in main(argv).completed}
+
+
+def _spawn(args, argv):
+    """Run the launcher on ``--shards`` ranks (gloo on the CPU, nccl a card
+    each on CUDA) and return rank 0's ``{request_id: output}``."""
+    import torch
+
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.runtime.device import resolve_device
+
+    if resolve_device(args.device).type == "cuda":
+        have, hint = torch.cuda.device_count(), ""
+    else:
+        have = args.devices or args.shards
+        hint = f" (on CPU pass --devices {args.shards})"
+    if have % args.shards:
+        raise SystemExit(
+            f"--shards {args.shards} does not divide the {have} available "
+            f"devices{hint}")
+    return run_ranks(_rank_main, args.shards, argv, device=args.device,
+                     quiet=True)[0]
 
 
 if __name__ == "__main__":

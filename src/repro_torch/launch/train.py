@@ -22,7 +22,7 @@ import tempfile
 import warnings
 
 _MULTI_DEVICE = ("multi-device training is not ported yet (ROADMAP.md "
-                 "section A, item 8); this launcher trains on one device")
+                 "section A, item 8b); this launcher trains on one device")
 
 
 def main(argv=None):

@@ -26,7 +26,8 @@ from repro_torch.policy import OpKind, policy_conv2d, policy_dot, site_scope
 from repro_torch.runtime.device import resolve_device
 
 from .common import EXACT, ArchConfig
-from .module import he_init, init_params, lecun_init, zeros_init
+from .module import (ParamSpec, axes_tree, he_init, init_params, lecun_init,
+                     zeros_init)
 
 Params = Dict[str, Any]
 
@@ -53,7 +54,8 @@ class _Specs:
         self.specs: Dict[str, tuple] = {}
 
     def param(self, name, shape, dtype, init):
-        self.specs[name] = (tuple(shape), dtype, init)
+        # the reference declares no sharding axes for the CNNs
+        self.specs[name] = ParamSpec(shape, dtype, init, (None,) * len(shape))
         return torch.empty(shape, dtype=torch_dtype(dtype), device="meta")
 
 
@@ -163,6 +165,11 @@ class CNNModel:
         seeded with ``seed`` (lecun, He for the VGG convs, zero biases)."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return init_params(self.param_specs(image_shape), gen, self.device)
+
+    def param_axes(self, image_shape=None):
+        """Each parameter's logical axes (all None), keyed like the
+        params."""
+        return axes_tree(self.param_specs(image_shape))
 
     def forward(self, params: Params, batch: Dict[str, torch.Tensor]):
         """images (B, H, W, C) -> (logits (B, classes) f32, aux 0.0)."""

@@ -7,15 +7,20 @@ key paths are identical in both packages, including the stacked layer axes
 (``blocks``, ``enc_blocks``/``dec_blocks``, ``mlstm_blocks``/``slstm_blocks``,
 ``mamba_blocks``) and their f32 leaves (norms, the sLSTM's ``r_*``,
 Mamba's ``a_log``/``d_skip``).
+
+:func:`shard_params` then cuts a whole tree to one rank's shards, the
+counterpart of the reference engine's ``jax.device_put(params,
+shardings)``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core.config import torch_dtype
+from repro_torch.parallel.sharding import Sharder, shard_tensor
 
 from .common import ArchConfig
 from .module import Params, flatten, unflatten
@@ -56,3 +61,23 @@ def params_from_jax(np_tree: Dict[str, Any], cfg: ArchConfig,
                              f"expects {tuple(shape)}")
         loaded[path] = _to_tensor(arr, torch_dtype(dtype), model.device)
     return unflatten(loaded)
+
+
+def shard_params(params: Params, sharder: Sharder,
+                 coords: Optional[Mapping[str, int]] = None, *,
+                 model) -> Params:
+    """This rank's shards of a whole parameter tree (from
+    :func:`params_from_jax` or the port's own ``init``): each leaf cut by
+    ``sharder.spec`` of its logical axes (the model's ``param_axes``) and
+    global shape, at the mesh ``coords`` (default: this rank's). Leaves
+    nothing splits are kept, not copied."""
+    coords = sharder.coords() if coords is None else coords
+    axes = flatten(model.param_axes())
+    flat = flatten(params)
+    if set(flat) != set(axes):
+        raise ValueError(f"param paths differ from {type(model).__name__}'s: "
+                         f"{sorted(set(flat) ^ set(axes))}")
+    return unflatten({
+        path: shard_tensor(sharder, t, sharder.spec(axes[path], t.shape),
+                           coords)
+        for path, t in flat.items()})

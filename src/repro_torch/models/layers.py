@@ -9,7 +9,25 @@ rule on an eligible call selects the fused flash-attention kernel
 
 Ported from ``repro/models/layers.py`` with the same masks, sentinels and
 chunked online softmax, so f32 rounding stays close to the reference.
-Deferred: the tensor-parallel ``shard_map`` branch of paged attention.
+
+Under a sharder (``repro_torch.parallel.sharding.use_sharder``) the
+parameters are this rank's shards and the layers are tensor-parallel, with
+explicit collectives where the reference's GSPMD inserts them:
+
+* :func:`dense` computes on the local shard: an output dim sharded over a
+  mesh axis stays local (column-parallel: ``wq``/``wk``/``wv``, ``wi``/
+  ``wg``); a contraction dim sharded over an axis is all-reduced over it
+  (row-parallel: ``attn/wo``, ``ffn/wo``), the bias added after the sum;
+* :func:`embed` is vocab-parallel (a masked lookup, then an all-reduce)
+  and :func:`unembed` too (local logits, all-gathered, so every rank takes
+  the same argmax);
+* the paged branch of :func:`self_attention` is head-local: the rank's q
+  heads read its slice of the kv-head pool (GQA grouping is contiguous:
+  q heads ``[j*nh/n, ...)`` read kv heads ``[j*kh/n, ...)``), so the
+  block-table gather/scatter never crosses ranks.
+
+Every reshape by heads, ``d_ff`` or vocab reads the local count. Activations
+between the layers are whole on every rank.
 """
 from __future__ import annotations
 
@@ -21,6 +39,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.config import torch_dtype
+from repro_torch.parallel.sharding import (current_sharder, shard_index,
+                                           shard_tensor)
 from repro_torch.policy import OpKind, attention_kernel, policy_dot, resolve_site
 
 from .common import ArchConfig
@@ -29,15 +49,46 @@ from .module import Ctx
 _NEG = -1e30        # masked-score sentinel (in the score dtype)
 _PAD_POS = 2**30    # kv position of padded keys
 
+# the logical axes of the attention and MLP matrices
+ATTN_AXES = {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+             "wv": ("embed", "kv_heads"), "wo": ("heads", "embed")}
+FFN_AXES = {"wi": ("embed", "mlp"), "wg": ("embed", "mlp"),
+            "wo": ("mlp", "embed")}
+
 # ---------------------------------------------------------------------------
 # Dense / norms
 # ---------------------------------------------------------------------------
 
 
+def sharded_dot(cfg: ArchConfig, x: torch.Tensor, w: torch.Tensor, *,
+                name: str, kind: OpKind, axes, shape):
+    """``x @ w`` where ``w`` is this rank's shard of a (K, N) = ``shape``
+    weight with logical ``axes``; ``x`` is whole or already split along K.
+    Returns (the output: summed over K's mesh axes, local along a sharded
+    N; the spec entry of N, None when N is whole)."""
+    sharder = current_sharder()
+    if sharder is None or axes is None:
+        return policy_dot(cfg.approx_policy, x, w, name=name, kind=kind), None
+    k_entry, n_entry = (sharder.spec(axes, shape) + (None, None))[:2]
+    if x.shape[-1] != w.shape[0]:  # whole x: take this rank's K slice
+        x = shard_tensor(sharder, x, (None,) * (x.dim() - 1) + (k_entry,),
+                         sharder.coords())
+    out = policy_dot(cfg.approx_policy, x, w, name=name, kind=kind,
+                     global_kn=tuple(shape))
+    if k_entry is not None:  # row-parallel: the partial sums, summed
+        out = sharder.all_reduce(out, k_entry)
+    return out, n_entry
+
+
 def dense(ctx: Ctx, name: str, x: torch.Tensor, cfg: ArchConfig, *,
-          use_bias: bool = False, kind: OpKind = OpKind.DENSE) -> torch.Tensor:
+          use_bias: bool = False, kind: OpKind = OpKind.DENSE,
+          axes=None, shape=None) -> torch.Tensor:
+    """``x @ w`` (+ bias) at the policy's site ``name``. ``axes`` and
+    ``shape`` (K, N) are the weight's logical axes and global shape, read
+    only under a sharder (see the module doc)."""
     w = ctx.param(name)
-    out = policy_dot(cfg.approx_policy, x, w, name=name, kind=kind)
+    out, _ = sharded_dot(cfg, x, w, name=name, kind=kind, axes=axes,
+                         shape=shape)
     if use_bias:
         out = out + ctx.param(name + "_b").to(out.dtype)
     return out
@@ -74,10 +125,14 @@ def activate(h: torch.Tensor, g: Optional[torch.Tensor], act: str) -> torch.Tens
 def mlp(ctx: Ctx, x: torch.Tensor, cfg: ArchConfig, *,
         use_bias: bool = False) -> torch.Tensor:
     gated = cfg.act in ("swiglu", "geglu")
-    h = dense(ctx, "wi", x, cfg, use_bias=use_bias)
-    g = dense(ctx, "wg", x, cfg) if gated else None
+    up, down = (cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)
+    h = dense(ctx, "wi", x, cfg, use_bias=use_bias, axes=FFN_AXES["wi"],
+              shape=up)
+    g = dense(ctx, "wg", x, cfg, axes=FFN_AXES["wg"], shape=up) \
+        if gated else None
     h = activate(h, g, cfg.act)
-    return dense(ctx, "wo", h, cfg, use_bias=use_bias)
+    return dense(ctx, "wo", h, cfg, use_bias=use_bias, axes=FFN_AXES["wo"],
+                 shape=down)
 
 
 # ---------------------------------------------------------------------------
@@ -224,6 +279,23 @@ def _paged_kv_attend(q, k, v, ck, cv, widx, phys_read, positions, *,
                   chunk=chunk, softcap=softcap)
 
 
+def _paged_shard_axis(sharder, q_shape, pool_shape) -> Optional[str]:
+    """Mesh axis the head-local paged attention splits heads over, or None.
+
+    Eligible only when the sharder lands the *same single* mesh axis on
+    both the activation heads dim of ``q`` (B, S, H, D) and the pool's
+    kv-heads dim (cells, KH, D); its divisibility fallback drops axes that
+    do not divide, so an indivisible head count gives None (the engine
+    then refuses the layout)."""
+    if sharder is None:
+        return None
+    qspec = sharder.spec((None, None, "act_heads", None), q_shape)
+    pspec = sharder.spec((None, "act_kv_heads", None), pool_shape)
+    axq = qspec[2] if len(qspec) > 2 else None
+    axp = pspec[1] if len(pspec) > 1 else None
+    return axq if isinstance(axq, str) and axq == axp else None
+
+
 def _update_slice(buf: torch.Tensor, dim: int, start: torch.Tensor,
                   new: torch.Tensor) -> None:
     """``lax.dynamic_update_slice`` along ``dim``, in place: ``new`` lands
@@ -284,12 +356,16 @@ def self_attention(ctx: Ctx, x: torch.Tensor, cfg: ArchConfig, *,
     (``decode_step``/``prefill``: ``cache`` holds the layer's ``k``/``v``,
     ``pos`` and, for a ring, ``abs_pos``) or over the paged KV pool
     (``paged_step``: ``cache`` holds the layer's pool and the resolved
-    ``write_idx`` / ``phys_read`` indices)."""
-    nh, kh, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    ``write_idx`` / ``phys_read`` indices). Under a sharder the heads are
+    this rank's (module doc)."""
+    hd, d = cfg.head_dim, cfg.d_model
     b, s, _ = x.shape
-    q = dense(ctx, "wq", x, cfg, use_bias=use_bias).reshape(b, s, nh, hd)
-    k = dense(ctx, "wk", x, cfg, use_bias=use_bias).reshape(b, s, kh, hd)
-    v = dense(ctx, "wv", x, cfg, use_bias=use_bias).reshape(b, s, kh, hd)
+    q = dense(ctx, "wq", x, cfg, use_bias=use_bias, axes=ATTN_AXES["wq"],
+              shape=(d, cfg.q_dim)).reshape(b, s, -1, hd)
+    k = dense(ctx, "wk", x, cfg, use_bias=use_bias, axes=ATTN_AXES["wk"],
+              shape=(d, cfg.kv_dim)).reshape(b, s, -1, hd)
+    v = dense(ctx, "wv", x, cfg, use_bias=use_bias, axes=ATTN_AXES["wv"],
+              shape=(d, cfg.kv_dim)).reshape(b, s, -1, hd)
     if cfg.rope_theta:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
@@ -318,8 +394,9 @@ def self_attention(ctx: Ctx, x: torch.Tensor, cfg: ArchConfig, *,
                      softcap=cfg.logit_softcap,
                      score_dtype=cfg.attn_score_dtype,
                      policy=cfg.approx_policy)
-    out = out.reshape(b, s, nh * hd)
-    return dense(ctx, "wo", out, cfg, use_bias=use_bias), new_cache
+    out = out.reshape(b, s, -1)
+    return dense(ctx, "wo", out, cfg, use_bias=use_bias, axes=ATTN_AXES["wo"],
+                 shape=(cfg.q_dim, d)), new_cache
 
 
 def cross_attention(ctx: Ctx, x: torch.Tensor, kv_src: torch.Tensor,
@@ -345,7 +422,25 @@ def cross_attention(ctx: Ctx, x: torch.Tensor, kv_src: torch.Tensor,
 
 
 def embed(ctx: Ctx, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    return ctx.param("embedding")[tokens]
+    """Embedding lookup; vocab-parallel under a sharder: each rank looks up
+    the tokens in its rows (the others read 0), and the sum over the
+    vocab's mesh axes is the whole embedding, bit for bit."""
+    e = ctx.param("embedding")
+    sharder = current_sharder()
+    if sharder is None:
+        return e[tokens]
+    v_entry, d_entry = (sharder.spec(("vocab", "embed"),
+                                     (cfg.vocab, cfg.d_model))
+                        + (None, None))[:2]
+    if v_entry is not None:
+        rows = e.shape[0]
+        local = tokens - shard_index(sharder, v_entry, sharder.coords()) * rows
+        mine = (local >= 0) & (local < rows)
+        x = torch.where(mine[..., None], e[local.clamp(0, rows - 1)], 0)
+        x = sharder.all_reduce(x, v_entry)
+    else:
+        x = e[tokens]
+    return sharder.all_gather(x, d_entry, -1)
 
 
 def tied_lm_head(e: torch.Tensor) -> torch.Tensor:
@@ -371,8 +466,14 @@ def tied_lm_head(e: torch.Tensor) -> torch.Tensor:
 
 
 def unembed(ctx: Ctx, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    if cfg.tie_embeddings:
-        return policy_dot(cfg.approx_policy, x,
-                          tied_lm_head(ctx.param("embedding")),
-                          name="lm_head", kind=OpKind.LM_HEAD)
-    return dense(ctx, "lm_head", x, cfg, kind=OpKind.LM_HEAD)
+    """The logits; vocab-parallel under a sharder, all-gathered, so every
+    rank holds all of them."""
+    w = (tied_lm_head(ctx.param("embedding")) if cfg.tie_embeddings
+         else ctx.param("lm_head"))
+    logits, v_entry = sharded_dot(cfg, x, w, name="lm_head",
+                                  kind=OpKind.LM_HEAD,
+                                  axes=("embed", "vocab"),
+                                  shape=(cfg.d_model, cfg.vocab))
+    if v_entry is None:
+        return logits
+    return current_sharder().all_gather(logits, v_entry, -1)

@@ -70,6 +70,25 @@ def ones_init() -> Init:
     return init
 
 
+class ParamSpec(tuple):
+    """One parameter's ``(shape, dtype, init)``, with its logical sharding
+    axes (the reference's ``ctx.param(..., axes=...)``) as ``.axes``: one
+    name or None per dim, such as ``("layers", "embed", "heads")``."""
+
+    def __new__(cls, shape, dtype, init, axes):
+        spec = super().__new__(cls, (tuple(shape), dtype, init))
+        if len(axes) != len(spec[0]):
+            raise ValueError(f"axes {axes} for a shape {spec[0]}")
+        spec.axes = tuple(axes)
+        return spec
+
+
+def axes_tree(specs: Dict[str, ParamSpec]) -> Params:
+    """Nested dict of each parameter's logical axes (the reference's
+    ``axes_tree(*model.init(key, abstract=True))``)."""
+    return unflatten({path: s.axes for path, s in specs.items()})
+
+
 def init_params(specs: Dict[str, tuple], gen: torch.Generator,
                 device: torch.device) -> Params:
     """Build a nested param dict from ``{"a/b/c": (shape, dtype, init)}``

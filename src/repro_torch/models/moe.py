@@ -1,10 +1,21 @@
-"""Mixture-of-Experts FFN on one device: every expert on every token,
-gate-weighted (the JAX package's ``_dense_moe``).
+"""Mixture-of-Experts FFN: the dense every-expert path and expert
+parallelism (EP), ported from ``repro/models/moe.py``.
 
-On one device the reference takes its dense implementation whatever
-``moe_impl`` says (it has no sharder to lay experts out), and so does the
-port. The expert-parallel path (``_local_dispatch_compute``, ``_capacity``,
-the ``shard_map`` branch) is multi-device work, not ported yet.
+* ``dense``: every expert on every token, gate-weighted (the reference's
+  ``_dense_moe``). It runs without a sharder, whatever ``moe_impl`` says
+  (the reference has no mesh to lay experts out then either), and under a
+  sharder when the EP rule below does not hold (the expert weights are
+  then gathered whole first).
+* ``ep``: under a sharder with a ``model`` axis that divides the experts
+  (and batch, d and expert_ff divisible by the data(+pod) size: the
+  reference's ``use_ep`` rule, word for word). Each model rank holds the
+  experts ``[e0, e0 + E/n)``; the contraction dim of their weights, sharded
+  over the data axes, is all-gathered just in time. The rank routes its
+  tokens, dispatches those that chose its experts into a static capacity
+  buffer (Switch-style token dropping: a slot past ``_capacity`` goes to a
+  trash row and its token gets no output from that expert), runs the
+  expert GEMMs at (E/n, capacity, d, f) and combines by the gates; the
+  partial outputs are summed over ``model`` and ``aux`` is averaged.
 
 Two choices make a token's result independent of how many tokens share
 its call (M), so that a paged serving step, a slot-cache decode step and a
@@ -15,21 +26,24 @@ full forward route every token alike:
   shape whatever M is; a library GEMM picks its algorithm, and with it the
   summation order, by shape;
 * the top-k is an explicit stable sort (the lower expert id first among
-  equal probabilities, as ``lax.top_k`` orders ties), and the combine adds
-  each token's k gated expert outputs one after another, in f32, instead of
-  a contraction over all experts.
+  equal probabilities, as ``lax.top_k`` orders ties), and the dense
+  combine adds each token's k gated expert outputs one after another, in
+  f32, instead of a contraction over all experts.
 
 The expert GEMMs go through :func:`repro_torch.policy.policy_expert_matmul`
-(one kernel launch a site for all the experts; the tokens reach it as a
-broadcast view, never copied E times).
+(one kernel launch a site for all the local experts; in the dense path the
+tokens reach it as a broadcast view, never copied E times).
 """
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel.sharding import current_sharder, shard_tensor
 from repro_torch.policy import policy_expert_matmul
 
 from .common import ArchConfig
@@ -37,6 +51,9 @@ from .layers import activate
 from .module import Ctx
 
 ROUTER_ROWS = 128  # the rows of the router's one GEMM shape
+# logical axes of the expert weights (w_in / w_gate, and w_out)
+EXPERT_IN_AXES = ("expert", "embed", "expert_mlp")
+EXPERT_OUT_AXES = ("expert", "expert_mlp", "embed")
 
 
 def _expert_mm(x: torch.Tensor, w: torch.Tensor, cfg: ArchConfig,
@@ -97,12 +114,101 @@ def _dense_moe(x, router_w, w_in, w_gate, w_out, cfg: ArchConfig):
     return out.to(x.dtype).reshape(b, s, d), aux
 
 
+def _capacity(tokens: int, cfg: ArchConfig) -> int:
+    """Slots per expert for ``tokens`` local tokens (at least top-k)."""
+    c = int(np.ceil(tokens * cfg.topk / cfg.n_experts * cfg.capacity_factor))
+    return max(c, cfg.topk)
+
+
+def _local_dispatch_compute(x2d, ids, probs, w_in, w_gate, w_out, e0: int,
+                            cfg: ArchConfig):
+    """Dispatch local tokens to the E_local experts [e0, e0+E_local), run
+    them at (E_local, capacity, d, f), and return the (partial) combined
+    output (T, d): the rows of tokens no local expert took are 0."""
+    t, d = x2d.shape
+    e_local = w_in.shape[0]
+    cap = _capacity(t, cfg)
+    dev = x2d.device
+    flat_ids = ids.reshape(-1)                          # (T*k,)
+    tok = torch.arange(flat_ids.numel(), device=dev) // cfg.topk
+    le = flat_ids - e0
+    mine = (le >= 0) & (le < e_local)
+    le_safe = torch.where(mine, le, 0)
+    # position of each slot within its expert's capacity buffer
+    oh = F.one_hot(torch.where(mine, le, e_local), e_local + 1)
+    pos = torch.cumsum(oh, dim=0) - 1
+    pos = torch.gather(pos, 1, le_safe[:, None])[:, 0]
+    keep = mine & (pos < cap)
+    pos_safe = torch.where(keep, pos, cap)              # slot cap: trash row
+
+    buf = torch.zeros((e_local, cap + 1, d), dtype=x2d.dtype, device=dev)
+    buf.index_put_((le_safe, pos_safe),
+                   torch.where(keep[:, None], x2d[tok], 0), accumulate=True)
+    buf = buf[:, :cap]                                  # (E_local, cap, d)
+
+    h = _expert_mm(buf, w_in, cfg, "w_in")
+    g = _expert_mm(buf, w_gate, cfg, "w_gate") if w_gate is not None else None
+    h = activate(h, g, cfg.act)
+    y = _expert_mm(h, w_out, cfg, "w_out")             # (E_local, cap, d)
+
+    y = F.pad(y, (0, 0, 0, 1))                          # the trash row back
+    out_slots = torch.where(keep[:, None], y[le_safe, pos_safe], 0)
+    return (out_slots.reshape(t, cfg.topk, d)
+            * probs.to(out_slots.dtype)[..., None]).sum(dim=1)
+
+
+def _gathered(sharder, w, axes, shape):
+    """The whole of a sharded tensor of global ``shape``: its shards
+    all-gathered along every dim the sharder splits."""
+    for dim, entry in enumerate(sharder.spec(axes, shape)):
+        w = sharder.all_gather(w, entry, dim)
+    return w
+
+
 def moe_ffn(ctx: Ctx, x: torch.Tensor, cfg: ArchConfig
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """MoE feed-forward. x: (B, S, d). Returns (out, aux_loss). Parameters
     ``router`` (d, E) f32, ``w_in``/``w_gate`` (E, d, expert_ff) and
-    ``w_out`` (E, expert_ff, d); ``w_gate`` only for gated activations."""
+    ``w_out`` (E, expert_ff, d); ``w_gate`` only for gated activations.
+    Under a sharder they are this rank's shards (``convert.shard_params``)
+    and ``x`` is whole on every rank."""
     gated = cfg.act in ("swiglu", "geglu")
-    return _dense_moe(x, ctx.param("router"), ctx.param("w_in"),
-                      ctx.param("w_gate") if gated else None,
-                      ctx.param("w_out"), cfg)
+    d, ff, e = x.shape[-1], cfg.expert_ff, cfg.n_experts
+    router_w, w_in, w_out = (ctx.param("router"), ctx.param("w_in"),
+                             ctx.param("w_out"))
+    w_gate = ctx.param("w_gate") if gated else None
+    sharder = current_sharder()
+    if sharder is None:
+        return _dense_moe(x, router_w, w_in, w_gate, w_out, cfg)
+
+    n_model = sharder.size("model")
+    dp_axes = tuple(a for a in ("pod", "data") if a in sharder.axis_names)
+    dp_size = math.prod(sharder.size(a) for a in dp_axes)
+    use_ep = (cfg.moe_impl == "ep" and "model" in sharder.axis_names
+              and e % n_model == 0 and x.shape[0] % dp_size == 0
+              and d % dp_size == 0 and ff % dp_size == 0)
+    router_w = _gathered(sharder, router_w, ("embed", None), (d, e))
+    if not use_ep:
+        w_in, w_out = (_gathered(sharder, w_in, EXPERT_IN_AXES, (e, d, ff)),
+                       _gathered(sharder, w_out, EXPERT_OUT_AXES, (e, ff, d)))
+        if gated:
+            w_gate = _gathered(sharder, w_gate, EXPERT_IN_AXES, (e, d, ff))
+        return _dense_moe(x, router_w, w_in, w_gate, w_out, cfg)
+
+    # FSDP: gather the contraction dim of the expert weights just in time
+    dp = dp_axes or None
+    w_in = sharder.all_gather(w_in, dp, 1)
+    w_gate = sharder.all_gather(w_gate, dp, 1) if gated else None
+    w_out = sharder.all_gather(w_out, dp, 2)
+    coords = sharder.coords()
+    x_loc = shard_tensor(sharder, x, (dp,), coords)   # this rank's batch
+    x2d = x_loc.reshape(-1, d)
+    ids, probs, aux = _route(x2d, router_w, cfg)
+    e0 = coords.get("model", 0) * (e // n_model)
+    out = _local_dispatch_compute(x2d, ids, probs, w_in, w_gate, w_out, e0,
+                                  cfg)
+    out = sharder.all_reduce(out, "model")
+    aux = sharder.all_reduce(aux.clone(), ("model",) + dp_axes) / (
+        n_model * dp_size)
+    out = sharder.all_gather(out.reshape(x_loc.shape), dp, 0)
+    return out, aux

@@ -25,15 +25,16 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.core.config import torch_dtype
+from repro_torch.parallel.sharding import current_sharder
 from repro_torch.policy import OpKind, plan_segments, site_scope
 from repro_torch.runtime.device import resolve_device
 
 from .common import ArchConfig
-from .layers import (cross_attention, embed, mlp, norm, self_attention,
-                     unembed)
-from .module import (Ctx, init_params, layer_slice, lecun_init, normal_init,
-                     ones_init, zeros_init)
-from .moe import moe_ffn
+from .layers import (ATTN_AXES, FFN_AXES, cross_attention, embed, mlp, norm,
+                     self_attention, unembed)
+from .module import (Ctx, ParamSpec, axes_tree, init_params, layer_slice,
+                     lecun_init, normal_init, ones_init, zeros_init)
+from .moe import EXPERT_IN_AXES, EXPERT_OUT_AXES, moe_ffn
 
 Params = Dict[str, Any]
 
@@ -143,47 +144,57 @@ def lm_specs(cfg: ArchConfig) -> Dict[str, tuple]:
     """The embedding, the final norm and (untied) the lm_head."""
     d, pd = cfg.d_model, cfg.param_dtype
     specs: Dict[str, tuple] = {
-        "embedding": ((cfg.vocab, d), pd, normal_init(1.0)),
-        "final_ln_scale": ((d,), "float32", ones_init()),
+        "embedding": ParamSpec((cfg.vocab, d), pd, normal_init(1.0),
+                               ("vocab", "embed")),
+        "final_ln_scale": ParamSpec((d,), "float32", ones_init(),
+                                    ("act_embed",)),
     }
     if cfg.norm == "layernorm":
-        specs["final_ln_bias"] = ((d,), "float32", zeros_init())
+        specs["final_ln_bias"] = ParamSpec((d,), "float32", zeros_init(),
+                                           ("act_embed",))
     if not cfg.tie_embeddings:
-        specs["lm_head"] = ((d, cfg.vocab), pd, lecun_init())
+        specs["lm_head"] = ParamSpec((d, cfg.vocab), pd, lecun_init(),
+                                     ("embed", "vocab"))
     return specs
 
 
 def block_specs(specs: Dict[str, tuple], cfg: ArchConfig, stack: str,
                 n: Optional[int], scope: str, ln: str, mats) -> None:
     """Add one block scope's norm ``ln`` and matrices ``mats`` (name, shape,
-    dtype, bias) under ``{stack}/{scope}``, stacked ``n`` deep (``None``: a
-    single block, as Zamba's shared one)."""
-    lead = () if n is None else (n,)
+    dtype, bias, logical axes) under ``{stack}/{scope}``, stacked ``n`` deep
+    on a ``layers`` axis (``None``: a single block, as Zamba's shared
+    one). A bias takes its matrix's output axis."""
+    lead, lax_ = ((), ()) if n is None else ((n,), ("layers",))
     d, pre = cfg.d_model, f"{stack}/{scope}"
-    specs[f"{pre}/{ln}_scale"] = ((*lead, d), "float32", ones_init())
+    specs[f"{pre}/{ln}_scale"] = ParamSpec((*lead, d), "float32",
+                                           ones_init(), (*lax_, "act_embed"))
     if cfg.norm == "layernorm":
-        specs[f"{pre}/{ln}_bias"] = ((*lead, d), "float32", zeros_init())
-    for name, shape, dtype, bias in mats:
-        specs[f"{pre}/{name}"] = ((*lead, *shape), dtype, lecun_init())
+        specs[f"{pre}/{ln}_bias"] = ParamSpec(
+            (*lead, d), "float32", zeros_init(), (*lax_, "act_embed"))
+    for name, shape, dtype, bias, axes in mats:
+        specs[f"{pre}/{name}"] = ParamSpec((*lead, *shape), dtype,
+                                           lecun_init(), (*lax_, *axes))
         if bias:
-            specs[f"{pre}/{name}_b"] = ((*lead, shape[-1]), cfg.param_dtype,
-                                        zeros_init())
+            specs[f"{pre}/{name}_b"] = ParamSpec(
+                (*lead, shape[-1]), cfg.param_dtype, zeros_init(),
+                (*lax_, axes[-1]))
 
 
 def attn_mats(cfg: ArchConfig, bias: bool):
     d, pd = cfg.d_model, cfg.param_dtype
-    return [("wq", (d, cfg.q_dim), pd, bias),
-            ("wk", (d, cfg.kv_dim), pd, bias),
-            ("wv", (d, cfg.kv_dim), pd, bias),
-            ("wo", (cfg.q_dim, d), pd, bias)]
+    return [("wq", (d, cfg.q_dim), pd, bias, ATTN_AXES["wq"]),
+            ("wk", (d, cfg.kv_dim), pd, bias, ATTN_AXES["wk"]),
+            ("wv", (d, cfg.kv_dim), pd, bias, ATTN_AXES["wv"]),
+            ("wo", (cfg.q_dim, d), pd, bias, ATTN_AXES["wo"])]
 
 
 def ffn_mats(cfg: ArchConfig, bias: bool):
     d, pd = cfg.d_model, cfg.param_dtype
     gated = cfg.act in ("swiglu", "geglu")
-    return ([("wi", (d, cfg.d_ff), pd, bias)]
-            + ([("wg", (d, cfg.d_ff), pd, False)] if gated else [])
-            + [("wo", (cfg.d_ff, d), pd, bias)])
+    return ([("wi", (d, cfg.d_ff), pd, bias, FFN_AXES["wi"])]
+            + ([("wg", (d, cfg.d_ff), pd, False, FFN_AXES["wg"])]
+               if gated else [])
+            + [("wo", (cfg.d_ff, d), pd, bias, FFN_AXES["wo"])])
 
 
 # ---------------------------------------------------------------------------
@@ -231,11 +242,13 @@ class DecoderLM:
             e, ff = cfg.n_experts, cfg.expert_ff
             gated = cfg.act in ("swiglu", "geglu")
             block_specs(specs, cfg, "blocks", L, "ffn", "ln2",
-                        [("router", (d, e), "float32", False),
-                         ("w_in", (e, d, ff), pd, False)]
-                        + ([("w_gate", (e, d, ff), pd, False)] if gated
-                           else [])
-                        + [("w_out", (e, ff, d), pd, False)])
+                        [("router", (d, e), "float32", False,
+                          ("embed", None)),
+                         ("w_in", (e, d, ff), pd, False, EXPERT_IN_AXES)]
+                        + ([("w_gate", (e, d, ff), pd, False,
+                             EXPERT_IN_AXES)] if gated else [])
+                        + [("w_out", (e, ff, d), pd, False,
+                            EXPERT_OUT_AXES)])
         else:
             block_specs(specs, cfg, "blocks", L, "ffn", "ln2",
                         ffn_mats(cfg, use_bias))
@@ -255,6 +268,10 @@ class DecoderLM:
         """
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return init_params(self.param_specs(), gen, self.device)
+
+    def param_axes(self) -> Params:
+        """Each parameter's logical axes, as a tree like the params'."""
+        return axes_tree(self.param_specs())
 
     def _layers(self, params: Params, x, layer_fn, cache=None,
                 image_embeds=None):
@@ -393,7 +410,8 @@ class DecoderLM:
     def init_paged_cache(self, num_blocks: int, block_size: int):
         """Physical page pool ``k/v (layers, num_blocks*block_size + 1, KH,
         HD)`` on ``self.device``. The extra last cell is the sink that
-        absorbs dropped writes (see ``layers._paged_kv_attend``)."""
+        absorbs dropped writes (see ``layers._paged_kv_attend``). Under a
+        sharder, KH is this rank's kv heads (:meth:`paged_cache_axes`)."""
         cfg = self.cfg
         if cfg.window:
             raise ValueError(
@@ -403,10 +421,23 @@ class DecoderLM:
             raise NotImplementedError(
                 "paged serving does not cover VLM cross-attention blocks")
         cells = num_blocks * block_size
-        kshape = (cfg.n_layers, cells + 1, cfg.kv_heads, cfg.head_dim)
+        kshape = (cfg.n_layers, cells, cfg.kv_heads, cfg.head_dim)
+        sharder = current_sharder()
+        if sharder is not None:
+            kshape = sharder.local_shape(
+                kshape, sharder.spec(self.paged_cache_axes(), kshape))
+        kshape = (kshape[0], cells + 1, *kshape[2:])
         dt = torch_dtype(cfg.compute_dtype)
         return {"k": torch.zeros(kshape, dtype=dt, device=self.device),
                 "v": torch.zeros(kshape, dtype=dt, device=self.device)}
+
+    @staticmethod
+    def paged_cache_axes():
+        """Logical axes of each paged-pool leaf (``init_paged_cache`` k/v):
+        layers and pool cells stay whole on every rank, kv heads split over
+        the model axis, the same split as the rank's q heads, so the
+        block-table gather/scatter is always rank-local."""
+        return ("layers", None, "act_kv_heads", None)
 
     def paged_step(self, params: Params, tokens: torch.Tensor, cache, *,
                    block_size: int):
@@ -549,8 +580,9 @@ class EncDecLM:
         """``{path: (shape, dtype, init)}`` with the JAX package's paths."""
         cfg = self.cfg
         specs = lm_specs(cfg)
-        specs["enc_pos"] = ((cfg.enc_frames, cfg.d_model), cfg.param_dtype,
-                            normal_init())
+        specs["enc_pos"] = ParamSpec((cfg.enc_frames, cfg.d_model),
+                                     cfg.param_dtype, normal_init(),
+                                     ("frames", "embed"))
         E, L = cfg.enc_layers, cfg.n_layers
         block_specs(specs, cfg, "enc_blocks", E, "attn", "ln1",
                     attn_mats(cfg, True))
@@ -569,6 +601,10 @@ class EncDecLM:
         seeded with ``seed``."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return init_params(self.param_specs(), gen, self.device)
+
+    def param_axes(self) -> Params:
+        """Each parameter's logical axes, as a tree like the params'."""
+        return axes_tree(self.param_specs())
 
     def encode(self, params: Params, frames: torch.Tensor) -> torch.Tensor:
         """frames (B, enc_frames, d) -> encoder states, compute dtype."""

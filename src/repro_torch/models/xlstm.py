@@ -27,7 +27,8 @@ from repro_torch.runtime.device import resolve_device
 
 from .common import ArchConfig
 from .layers import dense, embed, norm, unembed
-from .module import Ctx, init_params, layer_slice, normal_init
+from .module import (Ctx, ParamSpec, axes_tree, init_params, layer_slice,
+                     normal_init)
 from .transformer import (block_specs, clip_segments, lm_specs,
                           run_policy_segments)
 
@@ -181,6 +182,10 @@ def _store(dst, src) -> None:
         view.copy_(t)
 
 
+# the logical axes of the cells' projections (in: embed -> heads)
+_IN, _OUT = ("embed", "heads"), ("heads", "embed")
+
+
 class XLSTMModel:
     """One sLSTM block per ``slstm_every`` blocks (xLSTM[7:1] for 1.3B),
     mLSTM otherwise: ``forward``, ``init_cache`` and ``decode_step``.
@@ -211,16 +216,18 @@ class XLSTMModel:
         hd = d // nh
         specs = lm_specs(cfg)
         block_specs(specs, cfg, "mlstm_blocks", max(self.n_m, 1), "mlstm",
-                    "ln", [(w, (d, n), pd, False) for w, n in
-                           (("wq", d), ("wk", d), ("wv", d),
-                            ("wgate", 3 * nh), ("wo", d))])
+                    "ln", [(w, (d, n), pd, False, ax) for w, n, ax in
+                           (("wq", d, _IN), ("wk", d, _IN), ("wv", d, _IN),
+                            ("wgate", 3 * nh, _IN), ("wo", d, _OUT))])
         if self.n_s:
             block_specs(specs, cfg, "slstm_blocks", self.n_s, "slstm", "ln",
-                        [(w, (d, d), pd, False) for w in
+                        [(w, (d, d), pd, False,
+                          _OUT if w == "w_down" else _IN) for w in
                          ("wz", "wi", "wf", "wo_in", "w_down")])
             for r in ("r_z", "r_i", "r_f", "r_o"):
-                specs[f"slstm_blocks/slstm/{r}"] = (
-                    (self.n_s, nh, hd, hd), "float32", normal_init())
+                specs[f"slstm_blocks/slstm/{r}"] = ParamSpec(
+                    (self.n_s, nh, hd, hd), "float32", normal_init(),
+                    ("layers", "heads", None, None))
         return specs
 
     def init(self, seed: int = 0) -> Params:
@@ -228,6 +235,10 @@ class XLSTMModel:
         seeded with ``seed``."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return init_params(self.param_specs(), gen, self.device)
+
+    def param_axes(self):
+        """Each parameter's logical axes, as a tree like the params'."""
+        return axes_tree(self.param_specs())
 
     def _run(self, params: Params, x, states=None):
         """The blocks in kind order: each run of mLSTM blocks through the

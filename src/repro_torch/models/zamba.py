@@ -26,7 +26,8 @@ from repro_torch.runtime.device import resolve_device
 
 from .common import ArchConfig
 from .layers import dense, embed, mlp, norm, self_attention, unembed
-from .module import Ctx, init_params, normal_init, ones_init, zeros_init
+from .module import (Ctx, ParamSpec, axes_tree, init_params, normal_init,
+                     ones_init, zeros_init)
 from .transformer import (attn_mats, block_specs, clip_segments, ffn_mats,
                           lm_specs, run_policy_segments)
 
@@ -156,15 +157,19 @@ class ZambaModel:
         d, d_in, h = cfg.d_model, cfg.d_inner, cfg.ssm_heads
         specs = lm_specs(cfg)
         block_specs(specs, cfg, "mamba_blocks", L, "mamba", "ln",
-                    [("in_proj", (d, 2 * d_in), pd, False),
-                     ("bc_proj", (d_in, 2 * cfg.ssm_state), pd, False),
-                     ("dt_proj", (d_in, h), pd, False),
-                     ("out_proj", (d_in, d), pd, False)])
+                    [("in_proj", (d, 2 * d_in), pd, False, ("embed", "mlp")),
+                     ("bc_proj", (d_in, 2 * cfg.ssm_state), pd, False,
+                      ("mlp", "ssm")),
+                     ("dt_proj", (d_in, h), pd, False, ("mlp", "heads")),
+                     ("out_proj", (d_in, d), pd, False, ("mlp", "embed"))])
         pre = "mamba_blocks/mamba"
-        specs[f"{pre}/conv_w"] = ((L, cfg.conv_kernel, 1, d_in), pd,
-                                  normal_init())
-        specs[f"{pre}/a_log"] = ((L, h), "float32", zeros_init())
-        specs[f"{pre}/d_skip"] = ((L, h), "float32", ones_init())
+        specs[f"{pre}/conv_w"] = ParamSpec(
+            (L, cfg.conv_kernel, 1, d_in), pd, normal_init(),
+            ("layers", "conv", None, "mlp"))
+        specs[f"{pre}/a_log"] = ParamSpec((L, h), "float32", zeros_init(),
+                                          ("layers", "heads"))
+        specs[f"{pre}/d_skip"] = ParamSpec((L, h), "float32", ones_init(),
+                                           ("layers", "heads"))
         if self.n_sites:
             block_specs(specs, cfg, "shared_attn", None, "attn", "ln1",
                         attn_mats(cfg, False))
@@ -177,6 +182,10 @@ class ZambaModel:
         seeded with ``seed``."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return init_params(self.param_specs(), gen, self.device)
+
+    def param_axes(self):
+        """Each parameter's logical axes, as a tree like the params'."""
+        return axes_tree(self.param_specs())
 
     def _groups(self):
         """(lo, hi, site): Mamba blocks [lo, hi), then shared site ``site``

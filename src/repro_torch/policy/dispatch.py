@@ -307,18 +307,25 @@ def resolve_site(policy: ApproxPolicy, name: str, kind: OpKind, dtype,
 
 
 def policy_dot(policy: ApproxPolicy, x, w, *, name: str,
-               kind: OpKind = OpKind.DENSE, record: bool = True):
+               kind: OpKind = OpKind.DENSE, record: bool = True,
+               global_kn: Optional[Tuple[int, int]] = None):
     """``x @ w`` over the last axis of ``x`` with site-resolved numerics.
 
     Exact sites keep the plain deployment matmul (weights cast to the
     activation dtype); approximate sites run the DAISM GEMM through the
     per-config kernel cache. Output dtype always matches ``x``.
+
+    ``global_kn``: the (K, N) of the whole GEMM when ``x``/``w`` are one
+    rank's shards of it (tensor parallelism); the site is recorded at its
+    global shape, as the reference traces a dense site outside
+    ``shard_map``.
     """
     k = x.shape[-1]
     n = w.shape[-1]
     m = x.numel() // k if k else 0
+    gk, gn = global_kn or (k, n)
     cfg = resolve_site(policy, name, kind, x.dtype, record=record,
-                       macs=m * int(k) * int(n), dims=(m, int(k), int(n)))
+                       macs=m * int(gk) * int(gn), dims=(m, int(gk), int(gn)))
     if cfg.exact:
         return x @ w.to(x.dtype)
     out = matmul_kernel(cfg)(x.reshape(-1, k), w)

@@ -50,8 +50,21 @@ Ported from ``repro/serve/engine.py``:
   preemptions/resumes, speculation, host idle time, and the steps each
   group launched.
 
-Not ported yet: tensor-parallel sharding (``shards > 1`` raises
-``NotImplementedError``).
+* **Tensor-parallel sharding** — pass ``mesh=`` (a ``DeviceMesh`` with a
+  ``model`` axis, ``repro_torch.launch.mesh.make_mesh``) and the engine
+  lays the parameters out with the serve Sharder rules
+  (``convert.shard_params``: this rank keeps its shards), keeps this
+  rank's kv heads in the page pool, and runs every model step under the
+  sharder: the layers are column/row-parallel with explicit all-reduces,
+  the embedding and the logits vocab-parallel, the paged attention
+  head-local (``models/layers.py``), and MoE layers expert-parallel
+  (``models/moe.py``). Every rank runs this same host loop: no scheduling
+  decision depends on a clock, and every rank takes the argmax of the same
+  all-gathered logits, so the ranks stay in step and every collective
+  meets. ``EngineConfig.shards`` documents the layout; blocks and
+  num_slots must divide by it (daism-lint SRV007). Port-only limits: the
+  mesh's other axes must have size 1, and n_heads and kv_heads must divide
+  by the model axis (the reference falls back to a replicated pool there).
 
 Greedy (argmax) sampling keeps the output deterministic, so the same
 requests give the same tokens as the JAX engine on the same weights.
@@ -119,8 +132,9 @@ class EngineConfig:
     greedy decode). A per-group EWMA of the draft acceptance rate
     auto-disables speculation below ``spec_min_accept``.
 
-    ``shards`` is validated as in the reference; the engine refuses
-    ``shards > 1`` (tensor-parallel serving is not ported yet).
+    ``shards`` declares the mesh serving-axis (``model``) size the engine
+    is laid out for: pass the matching mesh to ``ServeEngine``; blocks and
+    num_slots must both divide by it.
     """
 
     num_slots: int = 4
@@ -209,13 +223,6 @@ class EngineConfig:
                 "the paged KV cache — ring buffers roll in place, pages are "
                 "freed whole; serve with window=0 (e.g. cfg.smoke(window=0))")
 
-    def check_ported(self) -> None:
-        """Refuse the engine features that are not ported yet."""
-        if self.shards > 1:
-            raise NotImplementedError(
-                "EngineConfig.shards>1 (tensor-parallel serving) is not "
-                "ported yet")
-
     @property
     def blocks(self) -> int:
         """Physical pool pages (resolves the ``num_blocks=0`` default)."""
@@ -272,6 +279,7 @@ class ServeReport:
     preemptions: int           # requests swapped out under page exhaustion
     resumes: int               # swapped requests restored and continued
     policy_groups: int
+    shards: int                # mesh serving-axis size (1 = single device)
     events: List[Dict[str, Any]]
     # speculative-decoding accounting (all zero when spec is off)
     spec_steps: int = 0        # batched verify steps launched
@@ -303,7 +311,7 @@ class ServeReport:
             f"{self.tok_lat_p95_ms:.2f} / p99 {self.tok_lat_p99_ms:.2f} ms",
             f"host idle {self.host_idle_s * 1e3:.1f} ms "
             f"({self.host_idle_frac * 100:.1f}% of wall) over {self.ticks} "
-            "ticks",
+            f"ticks;  {self.shards} shard(s)",
             f"KV util mean {self.kv_util_mean * 100:.1f}% / peak "
             f"{self.kv_util_peak * 100:.1f}%;  peak concurrency "
             f"{self.peak_active_requests};  {self.prefix_hits} prefix-cache "
@@ -371,8 +379,10 @@ def group_step(model, params, kv, tokens, tables, pos, last_idx, *,
 class ServeEngine:
     """Drives a DecoderLM-style model (init_paged_cache / paged_step)
     through paged continuous-batching generation on ``device`` (default: the
-    card; ``params`` must live there). ``run`` blocks until every submitted
-    request completes."""
+    card; ``params`` must live there, whole), optionally sharded over
+    ``mesh`` (tensor-parallel serving: a mesh with a ``model`` axis matching
+    ``cfg.shards``; every rank of it builds this engine with the same
+    arguments). ``run`` blocks until every submitted request completes."""
 
     # ticks with active/arrived work but no launches and no admissions
     # before the engine declares a livelock (undersized swap buffer)
@@ -383,12 +393,12 @@ class ServeEngine:
     _SPEC_EWMA_ALPHA = 0.4
     _SPEC_WARMUP = 4
 
-    def __init__(self, model, params, cfg: EngineConfig, device="cuda"):
+    def __init__(self, model, params, cfg: EngineConfig, mesh=None,
+                 device="cuda"):
         if not hasattr(model, "paged_step"):
             raise TypeError(
                 f"{type(model).__name__} has no paged_step(); the serving "
                 "engine requires the DecoderLM paged-cache API")
-        cfg.check_ported()
         if hasattr(model, "cfg"):
             cfg.validate_for_model(model.cfg)
         self.device = resolve_device(device)
@@ -401,9 +411,39 @@ class ServeEngine:
                                  f"runs on {self.device}")
         self.model = model
         self.cfg = cfg
+        self.mesh = mesh
+        self.shards = 1
+        self.sharder = None
+        if mesh is not None:
+            from repro_torch.parallel.sharding import (Sharder, base_rules,
+                                                       mesh_axis_names)
+
+            names = mesh_axis_names(mesh)
+            self.sharder = Sharder(mesh,
+                                   base_rules("pod" in names, serve=True))
+            if "model" in names:
+                self.shards = self.sharder.size("model")
+        if cfg.shards > 1 and self.shards != cfg.shards:
+            have = (f"a {self.shards}-way 'model' axis" if mesh is not None
+                    else "no mesh")
+            raise ValueError(
+                f"EngineConfig.shards={cfg.shards} but the engine got "
+                f"{have}; pass ServeEngine(..., mesh=...) with a matching "
+                "'model' mesh axis")
+        if self.shards > 1 and (cfg.blocks % self.shards
+                                or cfg.num_slots % self.shards):
+            raise ValueError(
+                f"EngineConfig: blocks={cfg.blocks} and num_slots="
+                f"{cfg.num_slots} must both be divisible by the mesh "
+                f"serving-axis size ({self.shards}): uneven banks make "
+                "GSPMD silently replicate the pool instead of sharding it "
+                "(daism-lint SRV007)")
+        if self.sharder is not None:
+            params = self._shard(model, params)
         self.params = params
         self.pool = BlockPool(cfg.blocks, cfg.block_size)
-        self.kv = model.init_paged_cache(cfg.blocks, cfg.block_size)
+        with self._scope():
+            self.kv = model.init_paged_cache(cfg.blocks, cfg.block_size)
         self._tiers: Dict[str, ApproxPolicy] = {
             name: parse_policy(spec, name=name) for name, spec in cfg.tiers}
 
@@ -445,6 +485,38 @@ class ServeEngine:
         self._spec_accepted = 0
         self._spec_emitted = 0     # tokens emitted by verify (incl. bonus)
         self._spec_disabled = 0    # groups shut off by the EWMA floor
+
+    # -- tensor parallelism ------------------------------------------------
+
+    def _shard(self, model, params):
+        """This rank's shards of ``params``, after the port-only layout
+        checks (module doc)."""
+        from repro_torch.models.convert import shard_params
+        from repro_torch.models.layers import _paged_shard_axis
+
+        s = self.sharder
+        wide = {a: s.size(a) for a in s.axis_names
+                if a != "model" and s.size(a) > 1}
+        if wide:
+            raise ValueError(
+                f"tensor-parallel serving shards over the 'model' mesh axis "
+                f"only; the mesh also splits {wide}")
+        mc = model.cfg
+        if self.shards > 1 and _paged_shard_axis(
+                s, (1, 1, mc.n_heads, mc.head_dim),
+                (1, mc.kv_heads, mc.head_dim)) != "model":
+            raise ValueError(
+                f"n_heads={mc.n_heads} and kv_heads={mc.kv_heads} must both "
+                f"be divisible by the mesh serving-axis size ({self.shards}): "
+                "the paged attention runs head-local on each rank's slice of "
+                "the kv-head pool (serve with kv_heads a multiple of shards)")
+        return shard_params(params, s, model=model)
+
+    def _scope(self):
+        """The engine's sharder as the ambient one (a no-op unsharded)."""
+        from repro_torch.parallel.sharding import use_sharder
+
+        return use_sharder(self.sharder)
 
     # -- numerics policy ---------------------------------------------------
 
@@ -732,7 +804,7 @@ class ServeEngine:
 
     def _launch(self, group: _PolicyGroup, tokens, tables, pos, last_idx):
         keep: list = []
-        with torch.inference_mode():
+        with torch.inference_mode(), self._scope():
             tok = group_step(
                 group.model, self.params, self.kv,
                 self._to_device(tokens, keep).long(),
@@ -826,7 +898,7 @@ class ServeEngine:
             caps[slot] = max(0, cov - 1 - state.seq_len)
         t0 = time.perf_counter()
         keep: list = []
-        with torch.inference_mode():
+        with torch.inference_mode(), self._scope():
             jt = self._to_device(tables, keep)
             jp = self._to_device(pos, keep)
             zero = torch.zeros_like(jp)
@@ -1092,6 +1164,7 @@ class ServeEngine:
             preemptions=self._preemptions,
             resumes=self._resumes,
             policy_groups=len(self.groups),
+            shards=self.shards,
             events=self.events,
             spec_steps=self._spec_steps,
             spec_drafted=self._spec_drafted,

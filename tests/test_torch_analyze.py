@@ -9,8 +9,7 @@ relative, and ``format_json``'s sites, segments, energy and exit code
 equal. The TIL family describes each package's own kernels, so its cases
 are the port's: the CUDA GEMM's tile and split-K paths, a block's shared
 memory, kernel sites on a ``cpu`` target, the flash kernels' tiles. The
-one serving difference by design: the port's engine refuses ``shards > 1``
-and the lint says so as SRV000, where the reference is silent.
+serving findings are the reference's, ``shards > 1`` included.
 """
 import dataclasses
 import json
@@ -340,42 +339,33 @@ def test_serving_duplicate_tier_groups_and_bad_tier_spec():
 
 
 def test_serving_shard_divisibility_srv007():
-    # the port adds SRV000 for every shards > 1 (below); SRV007 as the
-    # reference's
     bad = dict(num_slots=4, num_blocks=30, block_size=16, shards=4)
-    _, t = both(smoke_lm, engine=bad, drop=("SRV000",))
+    _, t = both(smoke_lm, engine=bad)
     assert any(f.code == "SRV007" and f.severity == "error"
                for f in t.findings)
     _, t = both(smoke_lm, engine=dict(num_slots=3, num_blocks=32,
-                                      block_size=16, shards=4),
-                drop=("SRV000",))
+                                      block_size=16, shards=4))
     assert "SRV007" in codes(t.findings)
     ok = dict(num_slots=4, num_blocks=32, block_size=16, shards=4)
-    _, t = both(smoke_lm, engine=ok, drop=("SRV000",))
+    _, t = both(smoke_lm, engine=ok)
     assert "SRV007" not in codes(t.findings)
-    _, t = both(smoke_lm, engine=bad, drop=("SRV000",),
-                advisory_serving=True)
+    _, t = both(smoke_lm, engine=bad, advisory_serving=True)
     assert any(f.code == "SRV007" and f.severity == "warning"
                for f in t.findings)
 
 
 @pytest.mark.parametrize("shards", [2, 4])
 def test_serving_shards_refused_as_srv000_by_design(shards):
-    """The difference by design: the port's engine refuses shards > 1
-    (EngineConfig.check_ported), so its lint reports that as an SRV000
-    error, before any weight exists, where the reference is silent."""
+    """Tensor-parallel serving is ported: a divisible ``shards > 1``
+    layout lints as the reference's does (equal findings and exit code,
+    no SRV000 and no SRV007), in strict and advisory mode, as shards=1."""
     ecfg = dict(num_slots=4, num_blocks=32, block_size=16, shards=shards)
-    j, t = both(smoke_lm, engine=ecfg, drop=("SRV000",))
-    assert "SRV000" not in codes(j.findings) and j.exit_code == 0
-    (srv0,) = [f for f in t.findings if f.code == "SRV000"]
-    assert srv0.severity == "error" and "shards" in srv0.message
-    assert t.exit_code == 1
-    # advisory mode keeps it an error: the engine would refuse it
-    _, t = both(smoke_lm, engine=ecfg, drop=("SRV000",),
-                advisory_serving=True)
-    assert "SRV000" in codes(t.errors)
-    _, t = both(smoke_lm, engine=dict(ecfg, shards=1))
-    assert "SRV000" not in codes(t.findings)
+    for kw in (dict(), dict(advisory_serving=True)):
+        j, t = both(smoke_lm, engine=ecfg, **kw)
+        assert t.exit_code == j.exit_code == 0
+        assert not {"SRV000", "SRV007"} & set(codes(t.findings))
+    _, one = both(smoke_lm, engine=dict(ecfg, shards=1))
+    assert codes(one.findings) == codes(t.findings)
 
 
 def test_serving_undersized_swap_buffer_srv008():

@@ -53,7 +53,8 @@ def test_every_port_module_imports_without_jax():
             "repro_torch.models.xlstm", "repro_torch.models.zamba",
             "repro_torch.configs.whisper_large_v3",
             "repro_torch.configs.xlstm_1_3b",
-            "repro_torch.configs.zamba2_1_2b"} <= set(mods)
+            "repro_torch.configs.zamba2_1_2b",
+            *MULTI_DEVICE} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
@@ -61,6 +62,27 @@ def test_every_port_module_imports_without_jax():
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print('BAD', bad)\n"
+        "assert not bad, bad\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+MULTI_DEVICE = ("repro_torch.parallel", "repro_torch.parallel.sharding",
+                "repro_torch.parallel.pipeline", "repro_torch.launch.mesh",
+                "repro_torch.optim.grad_compress")
+
+
+@pytest.mark.parametrize("mod", MULTI_DEVICE)
+def test_multi_device_module_imports_without_jax(mod):
+    """Each multi-device module alone, in a fresh process: no jax, no JAX
+    package, and no process group brought up by importing it."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({mod!r})\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n")
     proc = _run(code)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -108,11 +108,18 @@ def test_lint_broken_engine_config_is_srv000(capsys):
 
 
 def test_lint_shards_is_srv000_in_the_port(capsys):
-    argv = ["--model", "tinyllama_1_1b", "--shards", "2", "--no-sites"]
-    trc, tout = _run(tlint.main, argv, capsys)
-    jrc, _ = _run(jlint.main, argv, capsys)
-    assert (trc, jrc) == (1, 0)  # the difference by design
-    assert "E SRV000" in tout and "shards" in tout
+    """``--shards``: the reference's exit codes and findings; a divisible
+    layout is clean, 3 shards of 4 decode rows are SRV007."""
+    for shards, rc in (("2", 0), ("4", 0), ("3", 1)):
+        argv = ["--model", "tinyllama_1_1b", "--shards", shards,
+                "--format", "json"]
+        trc, tout = _run(tlint.main, argv, capsys)
+        jrc, jout = _run(jlint.main, argv, capsys)
+        (t,), (j,) = _json_reports(tout), _json_reports(jout)
+        assert trc == jrc == rc
+        assert _non_til(t) == _non_til(j)
+        assert ("SRV007" in {f["code"] for f in t["findings"]}) == bool(rc)
+        assert "SRV000" not in {f["code"] for f in t["findings"]}
 
 
 def test_lint_needs_exactly_one_of_model_and_all(capsys):
@@ -170,7 +177,7 @@ TRAIN = ["--arch", "tinyllama_1_1b", "--smoke", "--device", "cpu",
 @pytest.mark.parametrize("extra, code", [
     (["--policy", BOGUS], "POL001"),
     (["--blocks", "1", "--max-seq", "2048"], "SRV002"),
-    (["--shards", "2"], "SRV000"),
+    (["--shards", "4"], "SRV007"),  # 2 decode rows on 4 shards
     (["--max-seq", "100"], "SRV000"),  # EngineConfig does not construct
     (["--policy", "*=pc3_tr"], None),
 ])

@@ -102,10 +102,16 @@ def test_engine_config_errors_match(kw):
     (dict(shards=2), "shards"),
 ])
 def test_unported_engine_features_raise(served, kw, field):
-    _, _, tm, tp = served
-    cfg = TS.EngineConfig(num_slots=2, **kw)
-    with pytest.raises(NotImplementedError, match=field):
-        TS.ServeEngine(tm, tp, cfg, device="cpu")
+    """``shards`` without a matching mesh: the reference's ValueError,
+    word for word (tensor-parallel serving itself:
+    tests/test_torch_parallel_serve.py)."""
+    jm, jp, tm, tp = served
+    with pytest.raises(ValueError, match=field) as jerr:
+        JS.ServeEngine(jm, jp, JS.EngineConfig(num_slots=2, **kw))
+    with pytest.raises(ValueError, match=field) as terr:
+        TS.ServeEngine(tm, tp, TS.EngineConfig(num_slots=2, **kw),
+                       device="cpu")
+    assert str(terr.value) == str(jerr.value)
 
 
 def test_engine_rejects_windowed_model_and_bad_requests(served):
