@@ -208,6 +208,29 @@ and prints the kernels' times beside their bounds. Phases:
               int8 and none equal the CPU's bit for bit, bf16 within one
               bf16 rounding, the pipeline equal to the sequential loop.
               The process group is destroyed at the end.
+16. train mesh — multi-device training's code at world size 1: a new
+              1-rank NCCL group and a 1x1 ``data`` x ``model`` mesh; (a)
+              TinyLlama at 22 layers, phase 6's four steps (3 STE, 1
+              approximate backward, B = 2, S = 256) through
+              ``build_artifacts(cfg, mesh)`` against the same steps without
+              a mesh on the same weights and batches: losses, grad norms
+              and every parameter bit for bit (any gap fails), ms a step
+              beside phase 6's, the collectives a step, peak memory; (b)
+              Qwen3-MoE, 1 of 94 layers at published width, one train
+              step through EP (the train state reckoned first: past 75 GB
+              it times forward and backward alone) with the approximate
+              backward, beside the dense MoE's step from the same freshly
+              drawn initial state; the no-drop EP loss against the dense
+              loss (PREFILL_APPROX_REL on the logits); the expert kernel
+              at the step's forward, dx and dw shapes (K = C for dw)
+              against the plain version, timed beside its bound; (c) a
+              one-stage ``pipeline_apply``'s gradient on CUDA tensors
+              against sequential autograd over the same microbatches, bit
+              for bit;
+              (d) ``checkpoint.save`` under the mesh and ``restore(...,
+              shardings=)`` of (a)'s tree, bit for bit, timed; then
+              ``python -m repro_torch.launch.train --devices 1 --mesh
+              1x1 --layers 2`` on the card, run again to resume.
 
 Every check raises on failure and nothing is caught (checks 3c, 6, 9 and
 14c expect their errors), so any failure exits non-zero before the final
@@ -514,6 +537,21 @@ MESH_GEMMS = (("q", 2048, 512), ("k/v", 2048, 64), ("o", 512, 2048),
 MESH_M = (4, 128)
 # (c) the no-drop forward's tokens (B, S) against the dense MoE
 MESH_MOE_TOKENS = (1, 128)
+
+# phase 16: multi-device training's code at world size 1 (one card). (b)
+# Qwen3-MoE, 1 of 94 layers, one train step of B x S tokens through EP;
+# the state a parameter costs (bf16 weight, f32 master, m, v, bf16 grad)
+# and the card bytes above which (b) times forward and backward alone
+TRAIN_MESH_MOE_LAYERS, TRAIN_MESH_MOE_TOKENS = 1, (1, 128)
+TRAIN_STATE_BYTES_PER_PARAM = 2 + 4 + 4 + 4 + 2
+TRAIN_MESH_MAX_STATE = 75e9
+# (c) the one-stage pipeline: L layers of (D, D), B rows, M microbatches
+TRAIN_MESH_PIPE = (4, 256, 32, 4)
+# (d) the launcher over a 1x1 mesh: 2 steps with a checkpoint, then 3
+TRAIN_MESH_LAUNCH = ["--arch", "tinyllama_1_1b", "--devices", "1", "--mesh",
+                     "1x1", "--layers", "2", "--batch", "2", "--seq", "256",
+                     "--ckpt-every", "2", "--log-every", "1", "--policy",
+                     "*=pc3_tr:pallas"]
 
 
 def gemm_rtol(k: int) -> float:
@@ -3723,6 +3761,385 @@ def mesh_phase(device, cfg, base, dense_moe):
     return rec, tl_gemm + moe_gemm
 
 
+# ---------------------------------------------------------------------------
+# phase 16: multi-device training's code at world size 1
+# ---------------------------------------------------------------------------
+
+def _train_plan(cfg, mesh, device):
+    """Phase 6's plan under ``mesh`` (None: no mesh): artifacts for the STE
+    and the approximate backward, and the four (label, artifacts) steps."""
+    from repro_torch.core.config import Backend, DaismConfig, Variant
+    from repro_torch.launch.steps import build_artifacts
+    from repro_torch.policy import ApproxPolicy
+
+    ste = build_artifacts(cfg.with_policy(GEN_POLICY), mesh, device=device,
+                          warmup=1, total_steps=100)
+    approx = build_artifacts(cfg.with_policy(ApproxPolicy.uniform(
+        DaismConfig(variant=Variant.PC3_TR, backend=Backend.PALLAS,
+                    backward="approx"))), mesh, device=device, warmup=1,
+        total_steps=100)
+    return ste, [("ste", ste)] * 3 + [("approx", approx)]
+
+
+def _train_run(cfg, mesh, device):
+    """Phase 6's four steps from seed 0 on phase 6's batch shape; (params,
+    per-step records with the loss and grad norm tensors, GEMM launches,
+    collectives, peak GiB)."""
+    import torch
+
+    from repro_torch.data import lm_batches, shard_batch
+    from repro_torch.kernels import daism_matmul as dm
+    from repro_torch.parallel import sharding
+
+    ste, plan = _train_plan(cfg, mesh, device)
+    params = ste.init_params(0)
+    opt = ste.init_opt(params)
+    batches = lm_batches(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    _sync(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    dm.launches = 0
+    before = dict(sharding.COLLECTIVES)
+    steps = []
+    for label, art in plan:
+        batch = next(batches)
+        if mesh is not None:
+            batch = shard_batch(batch, art.batch_sharding(batch),
+                                device=device)
+        t0 = time.perf_counter()
+        params, opt, m = art.train_step(params, opt, batch)
+        _sync(device)
+        steps.append(dict(backward=label, ms=(time.perf_counter() - t0) * 1e3,
+                          loss=m["loss"].clone(),
+                          grad_norm=m["grad_norm"].clone()))
+    coll = {k: v - before[k] for k, v in sharding.COLLECTIVES.items()}
+    del opt
+    return params, steps, dm.launches, coll, _peak_gib(device), ste
+
+
+def train_mesh_tinyllama(device, cfg, mesh, base_steps):
+    """(a): phase 6's steps through build_artifacts(cfg, mesh) over the 1x1
+    mesh against the same steps without a mesh, on the same weights and
+    batches: losses, grad norms and every parameter, bit for bit; then
+    (d)'s checkpoint of the trained tree under the mesh and its restore
+    with param_shardings. Returns (record, GEMM launches)."""
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.models.module import flatten
+
+    ref_params, ref_steps, ref_n, _, _, _ = _train_run(cfg, None, device)
+    ref_params = {k: v for k, v in flatten(ref_params).items()}
+    _free(device)
+    params, steps, n, coll, peak, art = _train_run(cfg, mesh, device)
+    per_fwd = approx_launches_per_step(art.model)
+    if n != ref_n or n != 6 * per_fwd:
+        raise SystemExit(f"(a) {n} GEMM launches under the mesh, {ref_n} "
+                         f"without, {6 * per_fwd} implied")
+    gaps = {}
+    for i, (a, b) in enumerate(zip(steps, ref_steps)):
+        for key in ("loss", "grad_norm"):
+            if not torch.equal(a[key], b[key]):
+                gaps[f"step {i + 1} {key}"] = abs(
+                    float(a[key]) - float(b[key])) / abs(float(b[key]))
+    for k, t in flatten(params).items():
+        if not torch.equal(t, ref_params[k]):
+            gaps[k] = float((t.float() - ref_params[k].float()).abs().max())
+    for i, (a, b, c) in enumerate(zip(steps, ref_steps, base_steps)):
+        log(f"  (a) step {i + 1} ({a['backward']:6s}): 1x1 mesh "
+            f"{a['ms']:8.1f} ms, no mesh {b['ms']:8.1f} ms (phase 6: "
+            f"{c['ms']:8.1f} ms); loss {float(a['loss']):.6f}, grad_norm "
+            f"{float(a['grad_norm']):.6f}")
+    log(f"  (a) collectives a step under the 1x1 mesh: " + ", ".join(
+        f"{k} {v / len(steps):.1f}" for k, v in coll.items())
+        + f"; peak {peak:.2f} GiB; daism_matmul launches {n} "
+        f"(= no mesh, = 6 x {per_fwd})")
+    if gaps:
+        worst = max(gaps.items(), key=lambda kv: kv[1])
+        raise SystemExit(f"(a) NOT bit for bit: {len(gaps)} differ, the "
+                         f"largest {worst[0]} by {worst[1]:.3g}")
+    log(f"  (a) losses, grad norms and all {len(ref_params)} parameters "
+        "after 4 steps equal the run without a mesh, bit for bit")
+    del ref_params
+    _free(device)
+
+    root = ROOT / "build" / "chip_smoke_ckpt16"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        ckpt.save(str(root), 4, {"params": params},
+                  {"params": art.param_shardings})
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = ckpt.restore(str(root), 4, {"params": params},
+                            {"params": art.param_shardings})["params"]
+        _sync(device)
+        restore_s = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in root.rglob("*")
+                     if f.is_file())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for k, t in flatten(params).items():
+        if not torch.equal(flatten(back)[k], t):
+            raise SystemExit(f"(d) restore(shardings=) changed {k}")
+    log(f"  (d) save under the 1x1 mesh ({nbytes / 1e9:.3f} GB, gathered, "
+        f"rank 0 writes) {save_s:.2f} s; restore(shardings=) {restore_s:.2f}"
+        " s: every parameter bit for bit")
+    rec = dict(steps=[{k: (float(v) if torch.is_tensor(v) else v)
+                       for k, v in st.items()} for st in steps],
+               ref_ms=[st["ms"] for st in ref_steps], collectives=coll,
+               peak_gib=peak, gaps=gaps, save_s=save_s, restore_s=restore_s,
+               ckpt_bytes=nbytes)
+    del params, back, art
+    _free(device)
+    return rec, n + ref_n
+
+
+def train_mesh_moe(device, mesh):
+    """(b): one Qwen3-MoE train step at published width, 1 layer, through
+    EP under the 1x1 mesh (the approximate backward, so the expert
+    kernel runs forward and backward), beside the dense MoE's step on the
+    same layer; the no-drop loss against the dense loss; the expert
+    kernel at the step's forward and backward shapes against the plain
+    version. Returns (record, GEMM launches)."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import Backend, DaismConfig, Variant
+    from repro_torch.data import lm_batches, shard_batch
+    from repro_torch.kernels import daism_matmul as dm
+    from repro_torch.launch.steps import build_artifacts
+    from repro_torch.models.moe import _capacity
+    from repro_torch.models.registry import lm_loss
+    from repro_torch.policy import ApproxPolicy
+
+    cfg = dataclasses.replace(get_config("qwen3_moe_235b"),
+                              n_layers=TRAIN_MESH_MOE_LAYERS).with_policy(
+        ApproxPolicy.uniform(DaismConfig(variant=Variant.PC3_TR,
+                                         backend=Backend.PALLAS,
+                                         backward="approx")))
+    b, s = TRAIN_MESH_MOE_TOKENS
+    art = build_artifacts(cfg, mesh, device=device, warmup=1,
+                          total_steps=100)
+    n_params = sum(math.prod(sp[0]) for sp in art.model.param_specs().values())
+    state = n_params * TRAIN_STATE_BYTES_PER_PARAM
+    full = state <= TRAIN_MESH_MAX_STATE
+    cap = _capacity(b * s, cfg)
+    log(f"  (b) qwen3_moe_235b, {cfg.n_layers} of 94 layers at published "
+        f"width: {n_params / 1e9:.3f}e9 params x "
+        f"{TRAIN_STATE_BYTES_PER_PARAM} B = {state / 1e9:.1f} GB of train "
+        f"state ({'<=' if full else '>'} {TRAIN_MESH_MAX_STATE / 1e9:.0f} "
+        f"GB: {'the whole train_step' if full else 'forward and backward, no AdamW'}"
+        f"); B={b}, S={s}: capacity C = {cap} (top-{cfg.topk} of "
+        f"{cfg.n_experts}, capacity_factor {cfg.capacity_factor})")
+    torch.zeros((), device=device)
+    torch.cuda.reset_peak_memory_stats(device)
+    params = art.init_params(0)
+    gen = lm_batches(cfg.vocab, b, s, seed=0)
+    batch = next(gen)
+    batch = shard_batch(batch, art.batch_sharding(batch), device=device)
+    per_fwd = approx_launches_per_step(art.model)
+    rec = dict(params=n_params, state_bytes=state, full_step=full, c=cap)
+
+    def one_step(a, opt):
+        dm.launches = 0
+        t0 = time.perf_counter()
+        if opt is not None:
+            p, o, m = a.train_step(params, opt, batch)
+            loss = float(m["loss"])
+        else:  # forward and backward alone (no AdamW)
+            from repro_torch.models.module import flatten
+            from repro_torch.parallel.sharding import use_sharder
+
+            leaves = list(flatten(params).values())
+            with use_sharder(a.sharder), torch.enable_grad():
+                for t in leaves:
+                    t.requires_grad_(True)
+                logits, aux = a.model.forward(params, batch)
+                lv = lm_loss(logits, batch["labels"], aux)
+                torch.autograd.grad(lv, leaves, allow_unused=True)
+                for t in leaves:
+                    t.requires_grad_(False)
+            loss = float(lv)
+        _sync(device)
+        return (time.perf_counter() - t0) * 1e3, loss, dm.launches
+
+    opt = art.init_opt(params) if full else None
+    ep_ms, ep_loss, ep_n = one_step(art, opt)
+    if ep_n != 3 * per_fwd or not math.isfinite(ep_loss):
+        raise SystemExit(f"(b) EP step: loss {ep_loss}, {ep_n} GEMM "
+                         f"launches ({3 * per_fwd} implied)")
+    dense = build_artifacts(dataclasses.replace(cfg, moe_impl="dense"), mesh,
+                            device=device, warmup=1, total_steps=100)
+    # the dense step from the EP step's initial state: the EP step updated
+    # the parameters and the optimizer state in place, so draw both anew
+    del opt
+    _free(device)
+    params = art.init_params(0)
+    opt = art.init_opt(params) if full else None
+    d_ms, d_loss, d_n = one_step(dense, opt)
+    peak = _peak_gib(device)
+    log(f"  (b) EP train step {ep_ms:.1f} ms (loss {ep_loss:.4f}, "
+        f"{ep_n} GEMM launches = 3 x {per_fwd}); the dense MoE's step on "
+        f"the same layer from the same initial state {d_ms:.1f} ms (loss "
+        f"{d_loss:.4f}); peak {peak:.2f} GiB")
+    del opt
+    _free(device)
+
+    # the loss under a capacity that drops nothing, against the dense loss
+    nodrop = build_artifacts(dataclasses.replace(
+        cfg, capacity_factor=cfg.n_experts / cfg.topk), mesh, device=device)
+    ep = nodrop.prefill_step(params, batch)
+    ref = dense.prefill_step(params, batch)
+    l_ep = float(lm_loss(ep, batch["labels"]))
+    l_ref = float(lm_loss(ref, batch["labels"]))
+    rel, agree, clear_ok, n_clear = _logit_agreement(ep, ref)
+    log(f"  (b) no-drop EP (C = {_capacity(b * s, nodrop.cfg)}) loss "
+        f"{l_ep:.5f} vs the dense MoE's {l_ref:.5f} (|diff| / loss "
+        f"{abs(l_ep - l_ref) / l_ref:.3g}); logits max |diff| / max |ref| "
+        f"{rel:.4g} (bound {PREFILL_APPROX_REL:g}); greedy agree on "
+        f"{agree * 100:.1f}%, all {n_clear} clear rows: {clear_ok}")
+    if rel > PREFILL_APPROX_REL or not clear_ok \
+            or not torch.isfinite(ep).all():
+        raise SystemExit("(b) the no-drop EP step departs from the dense MoE")
+    del ep, ref, params, art, dense, nodrop
+    _free(device)
+
+    # the expert kernel at the step's shapes: forward w_in/w_gate (and
+    # w_out's dx), w_out (and w_in/w_gate's dx), and the two dw, K = C
+    gen = torch.Generator(device=device).manual_seed(21)
+    d, f, e = cfg.d_model, cfg.expert_ff, cfg.n_experts
+    rows, err = [], 0.0
+    for label, c, k, n, launches in (
+            ("w_in/w_gate fwd, w_out dx", cap, d, f, 3),
+            ("w_out fwd, w_in/w_gate dx", cap, f, d, 3),
+            ("w_in/w_gate dw", d, cap, f, 2), ("w_out dw", f, cap, d, 1)):
+        w = torch.randn((e, k, n), generator=gen, device=device).to(
+            torch.bfloat16)
+        row = expert_row(device, gen, "(b)", label, w, c, False)
+        row["launches"] = launches
+        err = max(err, row["max_abs_err"])
+        rows.append(row)
+        del w
+        _free(device)
+    rec.update(ep_ms=ep_ms, ep_loss=ep_loss, dense_ms=d_ms, dense_loss=d_loss,
+               peak_gib=peak, nodrop_loss=l_ep, dense_prefill_loss=l_ref,
+               nodrop_rel=rel, experts=rows, gemm_err=err)
+    return rec, ep_n + d_n
+
+
+def train_mesh_pipeline(device):
+    """(c): a one-stage pipeline_apply on CUDA tensors over the NCCL group,
+    M microbatches: its gradients of the stacked tree and of x against
+    sequential autograd over the same microbatches."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.pipeline import pipeline_apply
+
+    n_layers, dim, rows, m = TRAIN_MESH_PIPE
+
+    def leaves():
+        g = torch.Generator(device=device).manual_seed(22)
+        w = torch.randn((n_layers, dim, dim), generator=g, device=device) / 16
+        b = torch.randn((n_layers, dim), generator=g, device=device) / 10
+        x = torch.randn((rows, dim), generator=g, device=device)
+        return [t.requires_grad_() for t in (w, b, x)]
+
+    def layer(p, h):
+        return torch.tanh(h @ p["w"] + p["b"])
+
+    w, b, x = leaves()
+    y = pipeline_apply(layer, {"w": w, "b": b}, x,
+                       make_mesh((1,), ("stage",)), n_microbatches=m)
+    got = torch.autograd.grad((y ** 2).sum(), [w, b, x])
+    w, b, x = leaves()
+    mine = [{"w": w[i], "b": b[i]} for i in range(n_layers)]
+    outs = []
+    for mb in x.chunk(m):
+        for p in mine:
+            mb = layer(p, mb)
+        outs.append(mb)
+    want = torch.autograd.grad((torch.cat(outs) ** 2).sum(), [w, b, x])
+    _sync(device)
+    gap = max(float((a - r).abs().max()) for a, r in zip(got, want))
+    same = all(torch.equal(a, r) for a, r in zip(got, want))
+    log(f"  (c) one-stage pipeline_apply (L={n_layers}, D={dim}, B={rows}, "
+        f"M={m}) gradient vs sequential autograd over the same "
+        f"microbatches: " + ("bit for bit" if same else
+                             f"NOT bit for bit, max |diff| {gap:.3g}"))
+    if not same:
+        raise SystemExit("(c) the pipeline's gradient departs")
+    return dict(bitwise=same, max_abs_diff=gap)
+
+
+def train_mesh_launcher(device):
+    """(d): python -m repro_torch.launch.train over a 1x1 mesh on the card,
+    2 steps with a checkpoint, then again to step 3: it resumes."""
+    import shutil
+
+    root = ROOT / "build" / "chip_smoke_launch16"
+    shutil.rmtree(root, ignore_errors=True)
+    env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"))
+    out, secs = [], []
+    try:
+        for steps in (2, 3):
+            argv = TRAIN_MESH_LAUNCH + ["--steps", str(steps), "--ckpt",
+                                        str(root)]
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.train"] + argv,
+                cwd=ROOT, env=env, capture_output=True, text=True,
+                timeout=600)
+            secs.append(time.perf_counter() - t0)
+            if proc.returncode != 0:
+                raise SystemExit(f"(d) launch.train --steps {steps}: exit "
+                                 f"{proc.returncode}\n{proc.stderr[-3000:]}")
+            out.append(proc.stdout + proc.stderr)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    first, second = out
+    ok = ("mesh: {'data': 1, 'model': 1}" in first
+          and "step     2 loss" in first
+          and "resuming from checkpoint step 2" in second
+          and "step     2 loss" not in second
+          and "step     3 loss" in second and "done at step 3" in second)
+    if not ok:
+        raise SystemExit("(d) the launcher did not train, save and resume "
+                         "over the mesh:\n" + first[-2000:] + second[-2000:])
+    log(f"  (d) python -m repro_torch.launch.train {' '.join(TRAIN_MESH_LAUNCH)}"
+        f": 2 steps and a checkpoint in {secs[0]:.1f} s, resumed at step 2 "
+        f"to step 3 in {secs[1]:.1f} s (each a new process with its own "
+        "NCCL group)")
+    return dict(launch_s=secs)
+
+
+def train_mesh(device, cfg, base_steps):
+    """Phase 16; returns (record, GEMM launches)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+
+    log(f"  {nvidia_smi_line()}")
+    dev = init_distributed(device)
+    mesh = make_mesh((1, 1), ("data", "model"))
+    if dev != device:
+        raise SystemExit(f"phase 16: the group put the rank on {dev}")
+    try:
+        rec = {}
+        rec["tinyllama"], n_a = train_mesh_tinyllama(device, cfg, mesh,
+                                                     base_steps)
+        rec["moe"], n_b = train_mesh_moe(device, mesh)
+        rec["pipeline"] = train_mesh_pipeline(device)
+    finally:
+        dist.destroy_process_group()
+    rec["launcher"] = train_mesh_launcher(device)
+    return rec, n_a + n_b
+
+
 def build_all():
     """nvcc of every kernel source, all started together; prints the
     -Xptxas -v lines and returns ({name: (path, seconds)}, those lines)."""
@@ -3910,6 +4327,11 @@ def main(argv=None) -> int:
         zrec["moe"])
     mrec["seconds"] = time.perf_counter() - t15
 
+    log("== 16. train mesh: multi-device training's code on one card ==")
+    t16 = time.perf_counter()
+    trec, train_mesh_gemm = train_mesh(device, cfg, steps)
+    trec["seconds"] = time.perf_counter() - t16
+
     log("== summary ==")
     log("  serve: " + report.summary().replace("\n", "\n  serve: "))
     for label, r in pre.items():
@@ -3988,6 +4410,18 @@ def main(argv=None) -> int:
         f"p50 {mm['step_p50_ms']:.2f} ms (dense {mm['dense']['tok_s']:.1f} "
         f"tok/s, {mm['dense']['ttft_p50_ms']:.1f} ms, "
         f"{mm['dense']['step_p50_ms']:.2f} ms), capacity {mm['caps']}")
+    ta, tb = trec["tinyllama"], trec["moe"]
+    log(f"  train mesh ({trec['seconds']:.1f} s): (a) TinyLlama under the 1x1"
+        f" mesh " + ", ".join(f"{st['ms']:.1f}" for st in ta["steps"])
+        + " ms a step (no mesh " + ", ".join(f"{v:.1f}" for v in ta["ref_ms"])
+        + f"), {'bit for bit' if not ta['gaps'] else 'gaps printed above'}"
+        f", peak {ta['peak_gib']:.2f} GiB; (b) Qwen3-MoE (1 layer) EP step "
+        f"{tb['ep_ms']:.1f} ms, dense MoE {tb['dense_ms']:.1f} ms, C = "
+        f"{tb['c']}; (c) pipeline gradient "
+        f"{'bit for bit' if trec['pipeline']['bitwise'] else 'within 1e-4'}"
+        f"; (d) save {ta['save_s']:.2f} s, restore {ta['restore_s']:.2f} s, "
+        f"launcher {trec['launcher']['launch_s'][0]:.1f} + "
+        f"{trec['launcher']['launch_s'][1]:.1f} s")
     rep = next(r for r in rows if (r["variant"], r["m"], r["k"], r["n"])
                == REPRESENTATIVE)
     xrep = next(r for r in rows if (r["variant"], r["m"], r["k"], r["n"])
@@ -4000,9 +4434,11 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/daism_matmul.py:43",
         "launches": (serve_launches + pre_gemm + train_gemm + gen_gemm
                      + drv_gemm + cnn_gemm + more_gemm + zoo_gemm
-                     + rest_gemm + lint_gemm + mesh_gemm),
+                     + rest_gemm + lint_gemm + mesh_gemm
+                     + train_mesh_gemm),
         "max_abs_err": max(max_err, gemm_err, rrec["gemm_err"],
-                           mrec["gemm_err"], mrec["moe"]["gemm_err"]),
+                           mrec["gemm_err"], mrec["moe"]["gemm_err"],
+                           tb["gemm_err"]),
         "ms": rep["ms"],
         "plain_ms": rep["plain_ms"],
         "bound_ms": rep["bound_ms"],
@@ -4026,6 +4462,7 @@ def main(argv=None) -> int:
         "zoo_rest": rrec["gemms"],
         "mesh": mrec["gemms"],
         "mesh_experts": mrec["moe"]["experts"],
+        "train_mesh_experts": tb["experts"],
     }, {
         "name": "flash_attention",
         "route": "cuda",

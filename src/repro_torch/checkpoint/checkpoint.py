@@ -20,6 +20,14 @@ bf16 leaves are stored as 2-byte void (``|V2``): the bits, which is what
 package reads the other's checkpoints: the reference views ``V`` arrays
 back to bf16, and this module views them as int16 and then as
 ``torch.bfloat16``, with no ``ml_dtypes``.
+
+Under a mesh the file holds the same global arrays. :func:`save` with
+``shardings`` (a tree of ``parallel.sharding.NamedSharding`` like the
+tree's) gathers every leaf whole (a collective every rank joins), rank 0
+writes the directory and its sentinel, and the other ranks wait at a
+barrier. :func:`restore` with ``shardings`` reads the global arrays and
+keeps this rank's shard of each, so a run restores onto another mesh
+than the one that saved it (elastic restore).
 """
 from __future__ import annotations
 
@@ -91,10 +99,9 @@ def _to_numpy(leaf) -> np.ndarray:
 
 
 def _to_tensor(arr: np.ndarray, like) -> torch.Tensor:
-    """A stored array as a tensor with ``like``'s dtype and device, on the
+    """A stored array as a host tensor with ``like``'s dtype, on the
     array's memory (``np.load`` gives each array its own) or a copy."""
     want = like.dtype if isinstance(like, torch.Tensor) else None
-    device = like.device if isinstance(like, torch.Tensor) else "cpu"
     if not arr.flags.writeable:
         arr = arr.copy()
     if arr.dtype.kind == "V":  # bf16 bits (either package's save)
@@ -106,7 +113,7 @@ def _to_tensor(arr: np.ndarray, like) -> torch.Tensor:
         t = torch.from_numpy(arr)
     if want is not None and t.dtype != want:
         t = t.to(want)
-    return t.to(device)
+    return t
 
 
 def _head_bytes(arr: np.ndarray, n: int) -> bytes:
@@ -114,13 +121,41 @@ def _head_bytes(arr: np.ndarray, n: int) -> bytes:
     return np.ascontiguousarray(arr).reshape(-1).view(np.uint8)[:n].tobytes()
 
 
-def save(ckpt_dir: str, step: int, tree: Any) -> str:
-    """Atomically persist ``tree`` (copied to the host)."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+def is_writer() -> bool:
+    """Whether this process writes and deletes checkpoint files: rank 0 of
+    the process group, or the only process."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def save(ckpt_dir: str, step: int, tree: Any,
+         shardings: Optional[Any] = None) -> str:
+    """Atomically persist ``tree`` (copied to the host). With
+    ``shardings``, ``tree`` is this rank's shards: every rank calls it, the
+    leaves are gathered whole, rank 0 writes (module doc)."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    flat = _flatten(tree)
+    if shardings is not None:
+        import torch.distributed as dist
+
+        layout = _flatten(shardings)
+        flat = {k: layout[k].gather(v) if isinstance(v, torch.Tensor) else v
+                for k, v in flat.items()}
+        if is_writer():
+            _write(ckpt_dir, final, step, flat)
+        if dist.is_initialized():
+            dist.barrier()
+        return final
+    _write(ckpt_dir, final, step, flat)
+    return final
+
+
+def _write(ckpt_dir: str, final: str, step: int, flat: Dict[str, Any]):
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=".tmp_")
     try:
-        arrays = {k: _to_numpy(v) for k, v in _flatten(tree).items()}
+        arrays = {k: _to_numpy(v) for k, v in flat.items()}
         np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
         digest = hashlib.sha256()
         for k in sorted(arrays):  # the reference's: each leaf's first 4 KiB
@@ -138,7 +173,6 @@ def save(ckpt_dir: str, step: int, tree: Any) -> str:
     except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
-    return final
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:
@@ -157,23 +191,28 @@ def restore(ckpt_dir: str, step: int, like: Any,
             shardings: Optional[Any] = None) -> Any:
     """Restore into the structure of ``like``: fresh tensors with the dtype
     and on the device of ``like``'s leaves (nothing aliases ``like``).
-
-    ``shardings`` is the reference's signature; one card has nothing to
-    lay out, so anything but None raises."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore onto a mesh is not ported yet (ROADMAP.md section A, "
-            "item 8b); one card takes shardings=None")
+    With ``shardings`` (a tree like ``like``'s), each leaf is this rank's
+    shard of the stored global array, whatever mesh saved it."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     if not os.path.exists(os.path.join(path, SENTINEL)):
         raise FileNotFoundError(f"incomplete/missing checkpoint {path}")
     flat_like = _flatten(like)
+    layout = _flatten(shardings) if shardings is not None else {}
     with np.load(os.path.join(path, "arrays.npz")) as data:
         missing = set(flat_like) - set(data.files)
         if missing:
             raise ValueError(
                 f"checkpoint missing keys: {sorted(missing)[:5]} ...")
-        leaves = {k: _to_tensor(data[k], leaf) for k, leaf in flat_like.items()}
+        leaves = {}
+        for k, leaf in flat_like.items():
+            t = _to_tensor(data[k], leaf)
+            if k in layout:
+                t = layout[k].shard(t)
+            if isinstance(leaf, torch.Tensor) and t.shape != leaf.shape:
+                raise ValueError(f"{k}: restored shard {tuple(t.shape)}, the "
+                                 f"tree holds {tuple(leaf.shape)}")
+            leaves[k] = t.to(leaf.device if isinstance(leaf, torch.Tensor)
+                             else "cpu")
     return _unflatten_like(like, leaves)
 
 

@@ -10,11 +10,12 @@ they yield the same arrays as the JAX package's copy.
   class) + Gaussian noise + random shifts.
 
 Batches are host numpy arrays; the step functions move them to the device
-(``launch/steps.py``). ``shard_batch`` has no counterpart: there is no mesh.
+(``launch/steps.py``), and under a mesh :func:`shard_batch` gives each
+rank its rows first.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator
+from typing import Any, Dict, Iterator
 
 import numpy as np
 
@@ -69,3 +70,31 @@ def image_batches(n_classes: int, batch: int, *, shape=(28, 28, 1),
 
 def eval_set(gen: Iterator, n_batches: int):
     return [next(gen) for _ in range(n_batches)]
+
+
+def shard_batch(batch: Dict[str, np.ndarray], shardings=None, *,
+                device="cuda") -> Dict[str, Any]:
+    """This rank's part of a host batch, on ``device``: every rank draws
+    the same global batch from the seed and keeps the rows its
+    ``shardings`` (``Artifacts.batch_sharding(batch)``; None: all of them)
+    give it. The reference's ``shard_batch`` lays the global batch out
+    with ``device_put``; a batch whose rows do not divide over the data
+    ranks, which the reference replicates, raises here."""
+    import torch
+
+    from repro_torch.runtime.device import resolve_device
+
+    dev = resolve_device(device)
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.asarray(v))
+        if shardings is not None:
+            sh = shardings[k]
+            n = sh.sharder.ways(sh.sharder.batch_axes())
+            if t.shape[0] % n:
+                raise ValueError(
+                    f"batch leaf {k!r}: {t.shape[0]} rows do not divide "
+                    f"over {n} data ranks")
+            t = sh.shard(t)
+        out[k] = t.to(dev)
+    return out

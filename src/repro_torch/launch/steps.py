@@ -1,9 +1,14 @@
-"""The train, prefill and decode steps on one device.
+"""Builders for the train, prefill and decode steps, on one device or over a
+mesh of ranks.
 
-``build_artifacts`` assembles, for one architecture, the model and its step
-functions: the port of ``repro/launch/steps.py`` without the mesh, the
-sharder and the abstract trees (one card, eager PyTorch; there is nothing
-to lay out or compile).
+``build_artifacts(cfg, mesh=None)`` assembles, for one architecture, the
+model, the sharder (the reference's logical-axis rules), the layout trees
+and the step functions: the port of ``repro/launch/steps.py`` in eager
+PyTorch (there is nothing to compile). As in the reference a sharder is
+always installed: with ``mesh=None`` it is a sizes-only ``{"data": 1,
+"model": 1}`` one that needs no process group, so an MoE id takes the
+capacity-dropping expert-parallel FFN on one device, as the reference's
+does on a 1x1 mesh, and a dense id computes what it computed without one.
 
 * ``train_step(params, opt, batch) -> (params, opt, metrics)``: forward,
   ``lm_loss``, the backward pass, ``apply_updates`` with the cosine
@@ -22,42 +27,159 @@ to lay out or compile).
   fills it with ``model.encode``), or the recurrent states of xLSTM and
   Zamba. The cache is written in place.
 
+Under a mesh (``launch/mesh.py::make_mesh`` over a process group) every
+rank holds its shards (``init_params``, ``init_opt``, ``restore`` with
+``param_shardings`` / ``opt_shardings``) and its batch rows
+(``data/synthetic.py::shard_batch`` with ``batch_sharding``). The train
+step is the reference's global one: each data rank takes ``lm_loss`` on
+its rows, the gradient is their mean (the FSDP gathers sum it over the
+data ranks, leaves whole over ``data`` are all-reduced), the clip reads
+the global norm, and the logged loss is the global batch's. Prefill and
+decode take this rank's rows (a decode step on its shard of
+``init_cache``: its rows, its kv heads) and give their logits over the
+whole vocabulary. Only the decoders (dense, MoE, VLM) and Whisper's
+encoder-decoder are laid out over a mesh larger than 1x1 (ROADMAP C6
+queues xLSTM and Zamba).
+
 Every family trains and prefills alike: an audio batch carries
 ``frames`` beside ``tokens`` and ``labels``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict
+import math
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
 from repro_torch.models.common import ArchConfig
+from repro_torch.models.convert import shard_params
 from repro_torch.models.module import flatten, unflatten
 from repro_torch.models.registry import build_model, lm_loss
 from repro_torch.optim import (AdamWConfig, AdamWState, apply_updates,
                                cosine_with_warmup, init_state)
+from repro_torch.parallel.sharding import (NamedSharding, Sharder,
+                                           base_rules, mesh_axis_names,
+                                           use_sharder)
 
+# families whose layers take their shards over a mesh larger than 1x1
+MESH_FAMILIES = ("dense", "moe", "vlm", "audio")
+
+# ---------------------------------------------------------------------------
+# Cache logical axes (keyed by leaf name + rank: the reference's table, its
+# entries for the caches of MESH_FAMILIES)
+# ---------------------------------------------------------------------------
+
+_CACHE_AXES = {
+    ("k", 5): ("layers", "cache_batch", "cache_seq", "act_kv_heads", None),
+    ("v", 5): ("layers", "cache_batch", "cache_seq", "act_kv_heads", None),
+    ("abs_pos", 2): ("layers", "cache_seq"),
+    ("enc", 3): ("cache_batch", "frames", "act_embed"),
+}
+
+
+def cache_axes(cache, name: Optional[str] = None) -> Any:
+    """The logical axes of every leaf of a cache tree (dicts and tuples),
+    by the leaf's nearest dict key and its rank; a leaf the table does
+    not name (``pos``; the caches of families laid out on one device
+    only) is whole on every rank."""
+    if isinstance(cache, dict):
+        return {k: cache_axes(v, k) for k, v in cache.items()}
+    if isinstance(cache, tuple):
+        return tuple(cache_axes(v, name) for v in cache)
+    return _CACHE_AXES.get((name, cache.dim()), (None,) * cache.dim())
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over the leaves of congruent trees of dicts and tuples."""
+    t = trees[0]
+    if isinstance(t, dict):
+        return {k: _tree_map(fn, *(x[k] for x in trees)) for k in t}
+    if isinstance(t, tuple):
+        return tuple(_tree_map(fn, *x) for x in zip(*trees))
+    return fn(*trees)
+
+
+# ---------------------------------------------------------------------------
+# Artifacts
+# ---------------------------------------------------------------------------
 
 @dataclasses.dataclass
 class Artifacts:
     cfg: ArchConfig
+    mesh: Any                 # the DeviceMesh, or None (one device)
+    sharder: Sharder
     model: Any
+    param_axes: Any           # logical axes, a tree like the params'
+    param_shardings: Any      # NamedSharding tree (global shapes' specs)
+    opt_shardings: AdamWState
     train_step: Callable      # (params, opt, batch) -> (params, opt, metrics)
     prefill_step: Callable    # (params, batch) -> logits
     decode_step: Callable     # (params, tokens, cache[, extra]) -> (logits, cache)
+    batch_sharding: Callable[[Any], Any]
+    cache_shardings_for: Callable[[Any], Any]
     init_params: Callable[[int], Any]
     init_opt: Callable[[Any], AdamWState]
     init_cache: Callable[[int, int], Dict[str, torch.Tensor]]
 
 
-def build_artifacts(cfg: ArchConfig, *, device="cuda",
+def _check_mesh_family(cfg: ArchConfig, sharder: Sharder) -> None:
+    """Refuse what the sharded layers do not lay out, under a mesh larger
+    than 1x1 (never silently wrong)."""
+    if math.prod(sharder.size(a) for a in sharder.axis_names) == 1:
+        return
+    if cfg.family not in MESH_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} over a "
+            f"{ {a: sharder.size(a) for a in sharder.axis_names} } mesh is "
+            "not ported (ROADMAP.md "
+            f"section C, item 6); families {MESH_FAMILIES} train over a "
+            "mesh, every family on one device")
+    n = sharder.size("model")
+    for what, count in (("n_heads", cfg.n_heads), ("kv_heads", cfg.kv_heads)):
+        if count % n:
+            raise NotImplementedError(
+                f"{cfg.name}: {what}={count} does not divide over a "
+                f"{n}-way model axis (the reference replicates it; the "
+                "port's head-local attention needs it split)")
+
+
+def build_artifacts(cfg: ArchConfig, mesh=None, *, device="cuda",
                     opt_cfg: AdamWConfig = AdamWConfig(),
                     total_steps: int = 100_000,
                     warmup: int = 1000) -> Artifacts:
-    """The steps for ``cfg`` on ``device`` (default: the card)."""
+    """The steps for ``cfg`` on ``device`` (default: the card; under a
+    mesh, this rank's device), laid out over ``mesh`` (a named
+    ``DeviceMesh``; None: one device, under a sizes-only sharder)."""
+    names = mesh_axis_names(mesh) if mesh is not None else ("data", "model")
+    sharder = Sharder(mesh if mesh is not None else {"data": 1, "model": 1},
+                      base_rules("pod" in names))
+    _check_mesh_family(cfg, sharder)
     model = build_model(cfg, device=device)
     dev = model.device
+    specs = model.param_specs()
+    param_axes = model.param_axes()
+    param_shardings = unflatten({
+        path: NamedSharding(sharder, sharder.spec(axes, specs[path][0]))
+        for path, axes in flatten(param_axes).items()})
+    opt_shardings = AdamWState(NamedSharding(sharder, ()), param_shardings,
+                               param_shardings, param_shardings)
+    dp = sharder.batch_axes()
+    n_dp = sharder.ways(dp)
+    layout = flatten(param_shardings)
+
+    def batch_sharding(batch_tree):
+        """The rows of every leaf (its leading dim, the global batch) over
+        the batch axes; a batch they do not divide stays whole."""
+        return _tree_map(
+            lambda x: NamedSharding(sharder, sharder.spec(
+                ("act_batch",) + (None,) * (len(x.shape) - 1), x.shape)),
+            batch_tree)
+
+    def cache_shardings_for(cache_tree):
+        return _tree_map(
+            lambda x, a: NamedSharding(sharder, sharder.spec(a, x.shape)),
+            cache_tree, cache_axes(cache_tree))
 
     def to_device(batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         # token ids as int64; float inputs (a VLM's image_embeds, an
@@ -68,37 +190,54 @@ def build_artifacts(cfg: ArchConfig, *, device="cuda",
             out[k] = t if t.is_floating_point() else t.long()
         return out
 
+    def mean_over_data(grads):
+        """Sum each leaf whole over a data axis across those ranks (the
+        FSDP gathers' backward summed the others)."""
+        for path, g in grads.items():
+            missing = tuple(a for a in dp
+                            if a not in layout[path].mesh_axes())
+            grads[path] = sharder.all_reduce(g, missing,
+                                             downstream="per_rank")
+        return grads
+
     def train_step(params, opt_state: AdamWState, batch):
         batch = to_device(batch)
         flat = flatten(params)
         leaves = list(flat.values())
-        with torch.enable_grad():
+        with use_sharder(sharder), torch.enable_grad():
             for t in leaves:
                 t.requires_grad_(True)
             try:
                 logits, aux = model.forward(params, batch)
                 loss = lm_loss(logits, batch["labels"], aux)
-                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+                # this rank's rows: 1/n of the global mean's gradient
+                grads = torch.autograd.grad(loss / n_dp if n_dp > 1 else loss,
+                                            leaves, allow_unused=True)
             finally:
                 for t in leaves:
                     t.requires_grad_(False)
-        grads = unflatten({k: torch.zeros_like(t) if g is None else g
-                           for (k, t), g in zip(flat.items(), grads)})
+        grads = mean_over_data({k: torch.zeros_like(t) if g is None else g
+                                for (k, t), g in zip(flat.items(), grads)})
+        loss = loss.detach()
+        if n_dp > 1:
+            loss = sharder.all_reduce(loss.clone(), dp,
+                                      downstream="per_rank") / n_dp
         lr_scale = cosine_with_warmup(opt_state.step, warmup=warmup,
                                       total=total_steps)
-        params, opt_state, metrics = apply_updates(params, grads, opt_state,
-                                                   opt_cfg, lr_scale)
-        metrics["loss"] = loss.detach()
+        params, opt_state, metrics = apply_updates(
+            params, unflatten(grads), opt_state, opt_cfg, lr_scale,
+            shardings=param_shardings)
+        metrics["loss"] = loss
         return params, opt_state, metrics
 
     def prefill_step(params, batch):
-        with torch.no_grad():
+        with use_sharder(sharder), torch.no_grad():
             logits, _ = model.forward(params, to_device(batch))
         return logits
 
     def decode_step(params, tokens, cache, extra=None):
         tokens = torch.as_tensor(tokens).to(dev).long()
-        with torch.no_grad():
+        with use_sharder(sharder), torch.no_grad():
             if cfg.family == "vlm":
                 return model.decode_step(params, tokens, cache,
                                          image_embeds=torch.as_tensor(
@@ -106,13 +245,28 @@ def build_artifacts(cfg: ArchConfig, *, device="cuda",
             return model.decode_step(params, tokens, cache)
 
     def init_cache(batch_size: int, max_seq: int):
-        return model.init_cache(batch_size, max_seq)
+        """The cache for a global ``batch_size``: this rank's shard of it
+        (its rows, its kv heads) under a mesh."""
+        cache = model.init_cache(batch_size, max_seq)
+        if mesh is None:
+            return cache
+        return _tree_map(lambda t, sh: sh.shard(t), cache,
+                         cache_shardings_for(cache))
 
     def init_params(seed: int = 0):
+        """The whole tree from ``seed`` (the same on every rank), cut to this
+        rank's shards."""
         with torch.no_grad():
-            return model.init(seed)
+            params = model.init(seed)
+            if mesh is None:
+                return params
+            return shard_params(params, sharder, model=model)
 
-    return Artifacts(cfg=cfg, model=model, train_step=train_step,
+    return Artifacts(cfg=cfg, mesh=mesh, sharder=sharder, model=model,
+                     param_axes=param_axes, param_shardings=param_shardings,
+                     opt_shardings=opt_shardings, train_step=train_step,
                      prefill_step=prefill_step, decode_step=decode_step,
+                     batch_sharding=batch_sharding,
+                     cache_shardings_for=cache_shardings_for,
                      init_params=init_params, init_opt=init_state,
                      init_cache=init_cache)

@@ -26,8 +26,15 @@ explicit collectives where the reference's GSPMD inserts them:
   q heads ``[j*nh/n, ...)`` read kv heads ``[j*kh/n, ...)``), so the
   block-table gather/scatter never crosses ranks.
 
+Under the train rules the batch rows are split over the data axes
+(``act_batch``), and so is every weight's ``embed`` dim (FSDP, ZeRO-3).
+Such a dim is gathered whole before its GEMM or lookup (its gradient is
+summed over the data ranks on the way back), and only ``model`` entries
+keep the column- and row-parallel meaning above. Under the serve rules
+(``act_batch`` whole) a ``data`` entry is a row-parallel K, as before.
+
 Every reshape by heads, ``d_ff`` or vocab reads the local count. Activations
-between the layers are whole on every rank.
+between the layers are whole over ``model`` on every rank.
 """
 from __future__ import annotations
 
@@ -60,23 +67,42 @@ FFN_AXES = {"wi": ("embed", "mlp"), "wg": ("embed", "mlp"),
 # ---------------------------------------------------------------------------
 
 
+def fsdp_whole(w: torch.Tensor, axes, shape) -> torch.Tensor:
+    """A parameter with its FSDP dims (split over the batch axes) gathered
+    whole, under a sharder; ``w`` itself otherwise."""
+    sharder = current_sharder()
+    if sharder is None:
+        return w
+    for dim, entry in enumerate(sharder.spec(axes, shape)):
+        if sharder.is_fsdp(entry):
+            w = sharder.all_gather(w, entry, dim, downstream="per_rank")
+    return w
+
+
 def sharded_dot(cfg: ArchConfig, x: torch.Tensor, w: torch.Tensor, *,
                 name: str, kind: OpKind, axes, shape):
     """``x @ w`` where ``w`` is this rank's shard of a (K, N) = ``shape``
     weight with logical ``axes``; ``x`` is whole or already split along K.
     Returns (the output: summed over K's mesh axes, local along a sharded
-    N; the spec entry of N, None when N is whole)."""
+    N; the spec entry of N, None when N is whole). FSDP dims (the batch
+    axes) are gathered first; the whole ``x`` that each rank uses only in
+    part (column-parallel, or sliced along K) takes Megatron's ``f``."""
     sharder = current_sharder()
     if sharder is None or axes is None:
         return policy_dot(cfg.approx_policy, x, w, name=name, kind=kind), None
-    k_entry, n_entry = (sharder.spec(axes, shape) + (None, None))[:2]
+    w = fsdp_whole(w, axes, shape)  # ZeRO-3: every data rank, its own rows
+    k_entry, n_entry = (None if sharder.is_fsdp(e) else e for e in
+                        (sharder.spec(axes, shape) + (None, None))[:2])
+    if n_entry is not None:        # column-parallel
+        x = sharder.sum_grad(x, n_entry)
     if x.shape[-1] != w.shape[0]:  # whole x: take this rank's K slice
-        x = shard_tensor(sharder, x, (None,) * (x.dim() - 1) + (k_entry,),
+        x = shard_tensor(sharder, sharder.sum_grad(x, k_entry),
+                         (None,) * (x.dim() - 1) + (k_entry,),
                          sharder.coords())
     out = policy_dot(cfg.approx_policy, x, w, name=name, kind=kind,
                      global_kn=tuple(shape))
     if k_entry is not None:  # row-parallel: the partial sums, summed
-        out = sharder.all_reduce(out, k_entry)
+        out = sharder.all_reduce(out, k_entry, downstream="same")
     return out, n_entry
 
 
@@ -90,7 +116,10 @@ def dense(ctx: Ctx, name: str, x: torch.Tensor, cfg: ArchConfig, *,
     out, _ = sharded_dot(cfg, x, w, name=name, kind=kind, axes=axes,
                          shape=shape)
     if use_bias:
-        out = out + ctx.param(name + "_b").to(out.dtype)
+        b = ctx.param(name + "_b")
+        if axes is not None:
+            b = fsdp_whole(b, axes[-1:], shape[-1:])
+        out = out + b.to(out.dtype)
     return out
 
 
@@ -401,19 +430,25 @@ def self_attention(ctx: Ctx, x: torch.Tensor, cfg: ArchConfig, *,
 
 def cross_attention(ctx: Ctx, x: torch.Tensor, kv_src: torch.Tensor,
                     cfg: ArchConfig, *, use_bias: bool = False) -> torch.Tensor:
-    """Full (non-causal) cross attention against encoder/image states."""
-    nh, kh, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    """Full (non-causal) cross attention against encoder/image states;
+    under a sharder the heads are this rank's, as in
+    :func:`self_attention`."""
+    hd, d = cfg.head_dim, cfg.d_model
     b, s, _ = x.shape
     skv = kv_src.shape[1]
-    q = dense(ctx, "wq", x, cfg, use_bias=use_bias).reshape(b, s, nh, hd)
-    k = dense(ctx, "wk", kv_src, cfg, use_bias=use_bias).reshape(b, skv, kh, hd)
-    v = dense(ctx, "wv", kv_src, cfg, use_bias=use_bias).reshape(b, skv, kh, hd)
+    q = dense(ctx, "wq", x, cfg, use_bias=use_bias, axes=ATTN_AXES["wq"],
+              shape=(d, cfg.q_dim)).reshape(b, s, -1, hd)
+    k = dense(ctx, "wk", kv_src, cfg, use_bias=use_bias, axes=ATTN_AXES["wk"],
+              shape=(d, cfg.kv_dim)).reshape(b, skv, -1, hd)
+    v = dense(ctx, "wv", kv_src, cfg, use_bias=use_bias, axes=ATTN_AXES["wv"],
+              shape=(d, cfg.kv_dim)).reshape(b, skv, -1, hd)
     out = attend(q, k, v, torch.arange(s, device=x.device),
                  torch.arange(skv, device=x.device), causal=False,
                  chunk=skv,  # single chunk: small KV, uniform attn trips
                  score_dtype=cfg.attn_score_dtype, policy=cfg.approx_policy)
-    out = out.reshape(b, s, nh * hd)
-    return dense(ctx, "wo", out, cfg, use_bias=use_bias)
+    out = out.reshape(b, s, -1)
+    return dense(ctx, "wo", out, cfg, use_bias=use_bias, axes=ATTN_AXES["wo"],
+                 shape=(cfg.q_dim, d))
 
 
 # ---------------------------------------------------------------------------
@@ -424,7 +459,9 @@ def cross_attention(ctx: Ctx, x: torch.Tensor, kv_src: torch.Tensor,
 def embed(ctx: Ctx, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """Embedding lookup; vocab-parallel under a sharder: each rank looks up
     the tokens in its rows (the others read 0), and the sum over the
-    vocab's mesh axes is the whole embedding, bit for bit."""
+    vocab's mesh axes is the whole embedding, bit for bit. An FSDP ``embed``
+    dim (train rules) is gathered into the table first; otherwise (serve
+    rules) the looked-up columns are gathered."""
     e = ctx.param("embedding")
     sharder = current_sharder()
     if sharder is None:
@@ -432,15 +469,18 @@ def embed(ctx: Ctx, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     v_entry, d_entry = (sharder.spec(("vocab", "embed"),
                                      (cfg.vocab, cfg.d_model))
                         + (None, None))[:2]
+    e = fsdp_whole(e, ("vocab", "embed"), (cfg.vocab, cfg.d_model))
+    if sharder.is_fsdp(d_entry):
+        d_entry = None
     if v_entry is not None:
         rows = e.shape[0]
         local = tokens - shard_index(sharder, v_entry, sharder.coords()) * rows
         mine = (local >= 0) & (local < rows)
         x = torch.where(mine[..., None], e[local.clamp(0, rows - 1)], 0)
-        x = sharder.all_reduce(x, v_entry)
+        x = sharder.all_reduce(x, v_entry, downstream="same")
     else:
         x = e[tokens]
-    return sharder.all_gather(x, d_entry, -1)
+    return sharder.all_gather(x, d_entry, -1, downstream="same")
 
 
 def tied_lm_head(e: torch.Tensor) -> torch.Tensor:
@@ -476,4 +516,5 @@ def unembed(ctx: Ctx, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
                                   shape=(cfg.d_model, cfg.vocab))
     if v_entry is None:
         return logits
-    return current_sharder().all_gather(logits, v_entry, -1)
+    return current_sharder().all_gather(logits, v_entry, -1,
+                                        downstream="same")

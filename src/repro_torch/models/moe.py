@@ -16,6 +16,10 @@ parallelism (EP), ported from ``repro/models/moe.py``.
   trash row and its token gets no output from that expert), runs the
   expert GEMMs at (E/n, capacity, d, f) and combines by the gates; the
   partial outputs are summed over ``model`` and ``aux`` is averaged.
+  Under the serve rules ``x`` is whole on every data rank, which keeps its
+  rows and gathers the output back; under the train rules (``act_batch``
+  over the data axes) ``x`` is already this rank's rows, and capacity is
+  counted per data shard, as the reference's ``shard_map`` counts it.
 
 Two choices make a token's result independent of how many tokens share
 its call (M), so that a paged serving step, a slot-cache decode step and a
@@ -159,9 +163,12 @@ def _local_dispatch_compute(x2d, ids, probs, w_in, w_gate, w_out, e0: int,
 
 def _gathered(sharder, w, axes, shape):
     """The whole of a sharded tensor of global ``shape``: its shards
-    all-gathered along every dim the sharder splits."""
+    all-gathered along every dim the sharder splits (an FSDP dim sums its
+    gradient over the data ranks; a ``model`` dim serves the same dense
+    work on every model rank)."""
     for dim, entry in enumerate(sharder.spec(axes, shape)):
-        w = sharder.all_gather(w, entry, dim)
+        w = sharder.all_gather(w, entry, dim, downstream="per_rank"
+                               if sharder.is_fsdp(entry) else "same")
     return w
 
 
@@ -170,8 +177,9 @@ def moe_ffn(ctx: Ctx, x: torch.Tensor, cfg: ArchConfig
     """MoE feed-forward. x: (B, S, d). Returns (out, aux_loss). Parameters
     ``router`` (d, E) f32, ``w_in``/``w_gate`` (E, d, expert_ff) and
     ``w_out`` (E, expert_ff, d); ``w_gate`` only for gated activations.
-    Under a sharder they are this rank's shards (``convert.shard_params``)
-    and ``x`` is whole on every rank."""
+    Under a sharder they are this rank's shards (``convert.shard_params``);
+    ``x`` is whole on every rank (serve rules) or this data rank's rows
+    (train rules: the sharder's ``act_batch``)."""
     gated = cfg.act in ("swiglu", "geglu")
     d, ff, e = x.shape[-1], cfg.expert_ff, cfg.n_experts
     router_w, w_in, w_out = (ctx.param("router"), ctx.param("w_in"),
@@ -184,9 +192,19 @@ def moe_ffn(ctx: Ctx, x: torch.Tensor, cfg: ArchConfig
     n_model = sharder.size("model")
     dp_axes = tuple(a for a in ("pod", "data") if a in sharder.axis_names)
     dp_size = math.prod(sharder.size(a) for a in dp_axes)
+    rows_split = bool(dp_axes) and set(dp_axes) <= set(sharder.batch_axes())
+    batch = x.shape[0] * (dp_size if rows_split else 1)  # the global batch
     use_ep = (cfg.moe_impl == "ep" and "model" in sharder.axis_names
-              and e % n_model == 0 and x.shape[0] % dp_size == 0
+              and e % n_model == 0 and batch % dp_size == 0
               and d % dp_size == 0 and ff % dp_size == 0)
+    if not use_ep and rows_split and dp_size > 1:
+        # the load-balance aux of the whole batch is not the mean of the
+        # data shards' (the reference's GSPMD computes it on all rows)
+        raise NotImplementedError(
+            f"{cfg.name}: the dense MoE (moe_impl={cfg.moe_impl!r}) under "
+            f"a {dp_size}-way data axis; EP needs the experts ({e}) to "
+            f"divide over model ({n_model}) and batch ({batch}), d ({d}) "
+            f"and expert_ff ({ff}) to divide over data")
     router_w = _gathered(sharder, router_w, ("embed", None), (d, e))
     if not use_ep:
         w_in, w_out = (_gathered(sharder, w_in, EXPERT_IN_AXES, (e, d, ff)),
@@ -197,18 +215,24 @@ def moe_ffn(ctx: Ctx, x: torch.Tensor, cfg: ArchConfig
 
     # FSDP: gather the contraction dim of the expert weights just in time
     dp = dp_axes or None
-    w_in = sharder.all_gather(w_in, dp, 1)
-    w_gate = sharder.all_gather(w_gate, dp, 1) if gated else None
-    w_out = sharder.all_gather(w_out, dp, 2)
+    w_in = sharder.all_gather(w_in, dp, 1, downstream="per_rank")
+    w_gate = (sharder.all_gather(w_gate, dp, 1, downstream="per_rank")
+              if gated else None)
+    w_out = sharder.all_gather(w_out, dp, 2, downstream="per_rank")
     coords = sharder.coords()
-    x_loc = shard_tensor(sharder, x, (dp,), coords)   # this rank's batch
-    x2d = x_loc.reshape(-1, d)
-    ids, probs, aux = _route(x2d, router_w, cfg)
+    x_loc = x if rows_split else shard_tensor(sharder, x, (dp,), coords)
+    # every model rank routes the same tokens but runs only its experts:
+    # the tokens' and the router's gradients are partial sums (Megatron f)
+    x2d = sharder.sum_grad(x_loc.reshape(-1, d), "model")
+    ids, probs, aux = _route(x2d, sharder.sum_grad(router_w, "model"), cfg)
     e0 = coords.get("model", 0) * (e // n_model)
     out = _local_dispatch_compute(x2d, ids, probs, w_in, w_gate, w_out, e0,
                                   cfg)
-    out = sharder.all_reduce(out, "model")
-    aux = sharder.all_reduce(aux.clone(), ("model",) + dp_axes) / (
+    out = sharder.all_reduce(out, "model", downstream="same")
+    aux = sharder.all_reduce(aux.clone(), "model", downstream="same")
+    aux = sharder.all_reduce(aux, dp_axes, downstream="per_rank") / (
         n_model * dp_size)
-    out = sharder.all_gather(out.reshape(x_loc.shape), dp, 0)
-    return out, aux
+    out = out.reshape(x_loc.shape)
+    if rows_split:
+        return out, aux
+    return sharder.all_gather(out, dp, 0, downstream="same"), aux

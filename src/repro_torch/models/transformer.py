@@ -30,8 +30,8 @@ from repro_torch.policy import OpKind, plan_segments, site_scope
 from repro_torch.runtime.device import resolve_device
 
 from .common import ArchConfig
-from .layers import (ATTN_AXES, FFN_AXES, cross_attention, embed, mlp, norm,
-                     self_attention, unembed)
+from .layers import (ATTN_AXES, FFN_AXES, cross_attention, embed,
+                     fsdp_whole, mlp, norm, self_attention, unembed)
 from .module import (Ctx, ParamSpec, axes_tree, init_params, layer_slice,
                      lecun_init, normal_init, ones_init, zeros_init)
 from .moe import EXPERT_IN_AXES, EXPERT_OUT_AXES, moe_ffn
@@ -610,7 +610,9 @@ class EncDecLM:
         """frames (B, enc_frames, d) -> encoder states, compute dtype."""
         cfg = self.cfg
         dt = torch_dtype(cfg.compute_dtype)
-        x = frames.to(dt) + params["enc_pos"].to(dt)
+        pos = fsdp_whole(params["enc_pos"], ("frames", "embed"),
+                         (cfg.enc_frames, cfg.d_model))
+        x = frames.to(dt) + pos.to(dt)
         positions = torch.arange(frames.shape[1], device=frames.device)
 
         def enc_fn(c, xx, cache=None):

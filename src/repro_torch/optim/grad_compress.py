@@ -56,7 +56,9 @@ def compressed_psum(grads: Any, axis_names, mode: str = "int8", *,
     n = math.prod(sharder.size(a) for a in axis_names)
 
     def psum_all(x, op=dist.ReduceOp.SUM):
-        return sharder.all_reduce(x, tuple(axis_names), op=op)
+        # each rank's gradient is its own: a sum over the data ranks
+        return sharder.all_reduce(x, tuple(axis_names), op=op,
+                                  downstream="per_rank")
 
     def one(g):
         if mode == "none":

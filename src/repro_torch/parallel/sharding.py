@@ -16,10 +16,30 @@ identity, as the reference's is outside a mesh.
 A :class:`Sharder` is built over a ``torch.distributed`` ``DeviceMesh``
 (``launch/mesh.py::make_mesh``) or over a plain ``{axis: size}`` dict, so
 that the specs can be computed, and tensors sliced, with no process group.
+
+The collectives are seen by autograd. Each call site names what lies
+downstream of it (``downstream=``), and that fixes the backward:
+
+* ``"same"``: every rank of the axes does the same work with the result
+  (activations after a sum or gather over ``model``; the logits after
+  their vocab gather). The backward takes this rank's part of the
+  gradient: the identity for a sum of partials, its slice for a gather.
+  Summing there would make the gradient n times too large.
+* ``"per_rank"``: the ranks do different work with it (an FSDP weight
+  gathered over ``data``, where each data rank holds its own batch rows).
+  The backward sums the gradient over the axes: an all-reduce for a sum,
+  a reduce-scatter (an all-reduce, then this rank's slice) for a gather.
+
+:meth:`Sharder.sum_grad` is Megatron's ``f``: the identity forward, an
+all-reduce of the gradient backward, on the whole input of a
+column-parallel GEMM (each rank's input gradient is a partial sum). Out of
+autograd (``torch.no_grad``, or an input that takes no gradient) every
+collective runs as it did before, in place where it was in place.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 import threading
 from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
@@ -214,6 +234,18 @@ class Sharder:
 
     # -- collectives over named mesh axes ------------------------------------
 
+    def batch_axes(self) -> Tuple[str, ...]:
+        """The mesh axes the batch rows are split over (``act_batch``: the
+        data axes under the train rules, none under the serve rules). A
+        weight dim split over these is FSDP's (ZeRO-3): gathered whole
+        before use, since every such rank holds other rows."""
+        return self._axes_for("act_batch")
+
+    def is_fsdp(self, entry) -> bool:
+        """Whether a weight spec entry splits over batch axes only."""
+        axes = spec_axes(entry)
+        return bool(axes) and set(axes) <= set(self.batch_axes())
+
     def _groups(self, axes):
         """(axis, its process group) for each mesh axis of a spec entry. A
         sizes-only mesh has no group; its axes of size 1 need none."""
@@ -221,10 +253,7 @@ class Sharder:
             if not (isinstance(self.mesh, Mapping) and self.size(a) == 1):
                 yield a, self.group(a)
 
-    def all_reduce(self, x: torch.Tensor, axes, op=None) -> torch.Tensor:
-        """Sum (or ``op``) ``x`` in place over the mesh axes ``axes`` (a
-        spec entry). Over a ``DeviceMesh`` an axis of size 1 still calls
-        its group, so one card runs the code of many."""
+    def _reduce(self, x: torch.Tensor, axes, op=None) -> torch.Tensor:
         import torch.distributed as dist
 
         for _, group in self._groups(axes):
@@ -232,10 +261,7 @@ class Sharder:
             dist.all_reduce(x, op=op or dist.ReduceOp.SUM, group=group)
         return x
 
-    def all_gather(self, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
-        """Concatenate the shards of ``x`` along ``dim`` over the mesh axes
-        ``axes`` (a spec entry, major axis first, as :func:`shard_tensor`
-        lays them out)."""
+    def _gather(self, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
         import torch.distributed as dist
 
         for a, group in reversed(list(self._groups(axes))):
@@ -244,6 +270,135 @@ class Sharder:
             dist.all_gather(parts, x.contiguous(), group=group)
             x = torch.cat(parts, dim=dim)
         return x
+
+    def _slice(self, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+        """This rank's part of ``x`` along ``dim`` under spec entry
+        ``axes`` (what :meth:`all_gather` concatenated)."""
+        n = self.ways(axes)
+        if n == 1:
+            return x
+        dim = dim % x.dim()
+        size = x.shape[dim] // n
+        return x.narrow(dim, shard_index(self, axes, self.coords()) * size,
+                        size).contiguous()
+
+    def _traced(self, x: torch.Tensor, axes) -> bool:
+        """Whether a collective over ``axes`` must be seen by autograd: it
+        runs at least one group call and ``x`` takes a gradient."""
+        return (torch.is_grad_enabled() and x.requires_grad
+                and any(True for _ in self._groups(axes)))
+
+    def all_reduce(self, x: torch.Tensor, axes, op=None, *,
+                   downstream: str) -> torch.Tensor:
+        """Sum (or ``op``) ``x`` over the mesh axes ``axes`` (a spec entry):
+        in place out of autograd, a new tensor inside it. Over a
+        ``DeviceMesh`` an axis of size 1 still calls its group, so one card
+        runs the code of many. ``downstream`` fixes the backward (module
+        doc): ``"same"`` passes the gradient through, ``"per_rank"`` sums
+        it over ``axes``."""
+        _check_downstream(downstream)
+        if not self._traced(x, axes):
+            return self._reduce(x, axes, op)
+        import torch.distributed as dist
+
+        if op not in (None, dist.ReduceOp.SUM):
+            raise NotImplementedError(
+                f"the gradient of an all-reduce by {op} (only sums)")
+        return _AllReduce.apply(x, self, axes, downstream)
+
+    def all_gather(self, x: torch.Tensor, axes, dim: int, *,
+                   downstream: str) -> torch.Tensor:
+        """Concatenate the shards of ``x`` along ``dim`` over the mesh axes
+        ``axes`` (a spec entry, major axis first, as :func:`shard_tensor`
+        lays them out). ``downstream`` fixes the backward (module doc):
+        ``"same"`` takes this rank's slice of the gradient, ``"per_rank"``
+        sums it over ``axes`` first (a reduce-scatter)."""
+        _check_downstream(downstream)
+        if not self._traced(x, axes):
+            return self._gather(x, axes, dim)
+        return _AllGather.apply(x, self, axes, dim, downstream)
+
+    def sum_grad(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """Megatron's ``f``: ``x`` itself forward; backward, the gradient
+        summed over ``axes``. Put on a whole input that the ranks of
+        ``axes`` each use only in part (a column-parallel GEMM's ``x``, an
+        ``x`` sliced along a row-parallel K, EP's tokens and router)."""
+        if not self._traced(x, axes):
+            return x
+        return _SumGrad.apply(x, self, axes)
+
+
+_DOWNSTREAM = ("same", "per_rank")
+
+
+def _check_downstream(downstream: str) -> None:
+    if downstream not in _DOWNSTREAM:
+        raise ValueError(f"downstream={downstream!r}: one of {_DOWNSTREAM}")
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, sharder, axes, downstream):
+        ctx.sharder, ctx.axes, ctx.downstream = sharder, axes, downstream
+        return sharder._reduce(x.clone(), axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.downstream == "per_rank":
+            g = ctx.sharder._reduce(g.clone(), ctx.axes)
+        return g, None, None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, sharder, axes, dim, downstream):
+        ctx.sharder, ctx.axes, ctx.dim = sharder, axes, dim
+        ctx.downstream = downstream
+        return sharder._gather(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        s = ctx.sharder
+        if ctx.downstream == "per_rank":
+            g = s._reduce(g.clone(), ctx.axes)
+        return s._slice(g, ctx.axes, ctx.dim), None, None, None, None
+
+
+class _SumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, sharder, axes):
+        ctx.sharder, ctx.axes = sharder, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.sharder._reduce(g.clone(), ctx.axes), None, None
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class NamedSharding:
+    """One tensor's layout: a spec over a sharder's mesh (the reference's
+    ``NamedSharding(mesh, spec)``). The trees ``build_artifacts`` returns
+    (``param_shardings``, ``opt_shardings``, ``batch_sharding``,
+    ``cache_shardings_for``) hold these."""
+    sharder: "Sharder"
+    spec: Spec
+
+    def shard(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of the whole tensor ``full``."""
+        return shard_tensor(self.sharder, full, self.spec,
+                            self.sharder.coords())
+
+    def gather(self, local: torch.Tensor) -> torch.Tensor:
+        """The whole tensor from every rank's shard (a collective: every
+        rank of the mesh calls it)."""
+        for dim, entry in enumerate(self.spec):
+            local = self.sharder._gather(local, entry, dim)
+        return local
+
+    def mesh_axes(self) -> Tuple[str, ...]:
+        """The mesh axes the tensor is split over, in spec order."""
+        return tuple(a for e in self.spec for a in spec_axes(e))
 
 
 def shard_index(sharder: Sharder, entry, coords: Mapping[str, int]) -> int:

@@ -1,8 +1,8 @@
 """Fault-tolerant training driver: checkpoint/restart, straggler watchdog,
 simulated pre-emption.
 
-The port of ``repro/runtime/fault_tolerance.py`` on one card, with the
-reference's restart semantics:
+The port of ``repro/runtime/fault_tolerance.py``, on one device or on
+every rank of a mesh, with the reference's restart semantics:
 
   * every step runs inside the resume loop: after a crash the process (or
     its replacement) calls :func:`run` again and resumes from the newest
@@ -12,8 +12,12 @@ reference's restart semantics:
     than ``straggler_factor`` x the running mean.
 
 The data iterator is not checkpointed, as in the reference: a resumed run
-draws from the generator it is given, from its start. Elastic re-meshing
-has no counterpart on one card.
+draws from the generator it is given, from its start. Under a mesh
+(``param_shardings`` / ``opt_shardings``, from ``build_artifacts``) the
+checkpoint holds the global arrays and every rank restores its shards, so
+a run resumes onto another mesh (elastic restore); every rank takes the
+same checkpoint decisions from the step count (the watchdog only logs:
+no decision reads a clock), and the logged loss is the global batch's.
 """
 from __future__ import annotations
 
@@ -68,7 +72,9 @@ def run(loop_cfg: TrainLoopConfig,
         put_batch: Callable[[Dict], Dict],
         *,
         fault_hook: Optional[Callable[[int], None]] = None,
-        metrics_hook: Optional[Callable[[int, Dict], None]] = None):
+        metrics_hook: Optional[Callable[[int, Dict], None]] = None,
+        param_shardings: Any = None,
+        opt_shardings: Any = None):
     """Resumable training loop. Returns (params, opt_state, LoopState).
 
     On entry, if a checkpoint exists in ``ckpt_dir`` the passed-in
@@ -76,7 +82,11 @@ def run(loop_cfg: TrainLoopConfig,
     the same devices: restart semantics). ``fault_hook(step)`` is called
     before each step (tests raise SimulatedPreemption from it);
     ``metrics_hook(step, {name: float})`` every ``log_every`` steps.
+    ``param_shardings`` / ``opt_shardings``: the layout of a mesh run
+    (module doc).
     """
+    shardings = ({"params": param_shardings, "opt": opt_shardings}
+                 if param_shardings is not None else None)
     state = LoopState()
     watchdog = StepWatchdog(factor=loop_cfg.straggler_factor,
                             alpha=loop_cfg.ewma_alpha)
@@ -84,7 +94,7 @@ def run(loop_cfg: TrainLoopConfig,
     if last is not None:  # restart semantics: joint {"params","opt"} layout
         log.warning("resuming from checkpoint step %d", last)
         tree = ckpt.restore(loop_cfg.ckpt_dir, last,
-                            {"params": params, "opt": opt_state})
+                            {"params": params, "opt": opt_state}, shardings)
         params, opt_state = tree["params"], tree["opt"]
         state.step = last
 
@@ -111,6 +121,7 @@ def run(loop_cfg: TrainLoopConfig,
         if state.step % loop_cfg.ckpt_every == 0 or \
                 state.step == loop_cfg.total_steps:
             ckpt.save(loop_cfg.ckpt_dir, state.step,
-                      {"params": params, "opt": opt_state})
-            ckpt.cleanup(loop_cfg.ckpt_dir, loop_cfg.keep)
+                      {"params": params, "opt": opt_state}, shardings)
+            if ckpt.is_writer():
+                ckpt.cleanup(loop_cfg.ckpt_dir, loop_cfg.keep)
     return params, opt_state, state

@@ -7,8 +7,10 @@
 * the loss sequence across a ``SimulatedPreemption`` against the JAX
   package's ``run`` on the same weights and batches, within
   tests/test_torch_train.py's train-step bounds (``TRAIN_TOL``);
-* ``python -m repro_torch.launch.train`` on the CPU: it resumes, and it
-  refuses more than one device.
+* ``python -m repro_torch.launch.train`` on the CPU: it resumes, and on
+  4 ``gloo`` ranks (``--devices 4``, ``--mesh 2x2``) its losses are the
+  one-device run's within bf16 summation order;
+* ``restore(shardings=)`` keeps a rank's shard of each stored array.
 """
 import json
 import os
@@ -200,9 +202,39 @@ def test_port_checkpoint_restores_in_jax_bit_for_bit(tmp_path):
 
 
 def test_restore_refuses_shardings(tmp_path, tree):
+    """(Named when the port had no mesh and refused ``shardings``.) The
+    whole tree saved, restored with the layout of a 2x2 mesh at each
+    rank's coordinates: each leaf is that rank's slice of the stored
+    array, bit for bit; a shard shape the tree does not hold raises."""
+    from repro_torch.parallel.sharding import NamedSharding, Sharder
+
     ckpt.save(str(tmp_path), 1, tree)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ckpt.restore(str(tmp_path), 1, tree, shardings={"a": None})
+
+    class At(Sharder):  # a sizes-only 2x2 mesh seen from one rank
+        def __init__(self, coords):
+            super().__init__({"data": 2, "model": 2}, {})
+            self._at = coords
+
+        def coords(self):
+            return self._at
+
+    for d in (0, 1):
+        for m in (0, 1):
+            sh = At({"data": d, "model": m})
+            lay = {"a": NamedSharding(sh, ("data",)),
+                   "nested": {"b": NamedSharding(sh, ("model",)),
+                              "step": NamedSharding(sh, ())}}
+            like = {"a": torch.zeros((1, 3)),
+                    "nested": {"b": torch.zeros((2,), dtype=torch.bfloat16),
+                               "step": torch.tensor(0, dtype=torch.int32)}}
+            out = ckpt.restore(str(tmp_path), 1, like, shardings=lay)
+            assert torch.equal(out["a"], tree["a"][d:d + 1])
+            assert torch.equal(out["nested"]["b"],
+                               tree["nested"]["b"][2 * m:2 * m + 2])
+            assert out["nested"]["b"].dtype == torch.bfloat16
+            assert torch.equal(out["nested"]["step"], tree["nested"]["step"])
+    with pytest.raises(ValueError, match="shard"):
+        ckpt.restore(str(tmp_path), 1, tree, shardings=lay)
 
 
 # ---------------------------------------------------------------------------
@@ -379,12 +411,32 @@ def test_train_launcher_resumes_on_the_cpu(tmp_path, capsys):
                                             "step_00000006"]
 
 
+def _step_losses(out):
+    return {int(line.split()[1]): float(line.split()[3])
+            for line in out.splitlines() if line.startswith("step ")}
+
+
 @pytest.mark.parametrize("flags", [["--devices", "4"], ["--mesh", "2x2"]])
-def test_train_launcher_refuses_more_than_one_device(flags, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tlaunch.main(["--arch", "tinyllama_1_1b", "--smoke", "--device",
-                      "cpu", "--ckpt", str(tmp_path)] + flags)
-    assert not os.listdir(tmp_path)
+def test_train_launcher_refuses_more_than_one_device(flags, tmp_path, capfd):
+    """(Named when the launcher refused a mesh.) ``--devices 4`` (the
+    reference's auto mesh: 2 x 2) and ``--mesh 2x2`` spawn 4 ``gloo`` ranks;
+    rank 0 prints the mesh and the global loss of each step, which equals
+    the one-device run's within the smoke config's bf16 summation order,
+    and the checkpoints land as the one-device run's do."""
+    argv = ["--arch", "tinyllama_1_1b", "--smoke", "--device", "cpu",
+            "--steps", "3", "--ckpt-every", "3", "--log-every", "1"]
+    tlaunch.main(argv + ["--ckpt", str(tmp_path / "one")])
+    one = _step_losses(capfd.readouterr().out)
+    _, _, state = tlaunch.main(argv + ["--ckpt", str(tmp_path / "mesh")]
+                               + flags)
+    out = capfd.readouterr().out
+    assert state.step == 3
+    assert "mesh: {'data': 2, 'model': 2}" in out
+    got = _step_losses(out)
+    assert sorted(got) == sorted(one) == [1, 2, 3]
+    for step, loss in one.items():
+        assert abs(got[step] - loss) <= 1e-3 * loss, (step, got, one)
+    assert os.listdir(tmp_path / "mesh") == ["step_00000003"]
 
 
 def test_train_launcher_defaults_to_the_card(tmp_path):

@@ -69,7 +69,14 @@ def test_every_port_module_imports_without_jax():
 
 MULTI_DEVICE = ("repro_torch.parallel", "repro_torch.parallel.sharding",
                 "repro_torch.parallel.pipeline", "repro_torch.launch.mesh",
-                "repro_torch.optim.grad_compress")
+                "repro_torch.optim.grad_compress",
+                # multi-device training: the steps, the data's shards, the
+                # optimizer's global norm, checkpoints, the loop, launcher
+                "repro_torch.launch.steps", "repro_torch.data.synthetic",
+                "repro_torch.optim.adamw",
+                "repro_torch.checkpoint.checkpoint",
+                "repro_torch.runtime.fault_tolerance",
+                "repro_torch.launch.train")
 
 
 @pytest.mark.parametrize("mod", MULTI_DEVICE)
@@ -155,6 +162,23 @@ def test_lenet_example_imports_without_jax():
         "import runpy, sys\n"
         "runpy.run_path('examples/train_lenet_daism_torch.py', "
         "run_name='example')\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout == ""
+
+
+def test_distributed_example_imports_without_jax():
+    """examples/train_lm_distributed_torch.py stands alone too; importing
+    it spawns no rank and brings up no process group."""
+    code = (
+        "import runpy, sys\n"
+        "runpy.run_path('examples/train_lm_distributed_torch.py', "
+        "run_name='example')\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n")

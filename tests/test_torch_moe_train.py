@@ -116,20 +116,17 @@ def test_train_step_matches_jax(arch, kind, np_params):
     0.01 x the layers' summed load-balance losses, and the grad norm within
     ``TRAIN_TOL``; the step-1 schedule leaves every parameter as it was.
 
-    Both configs say ``moe_impl="dense"``: the reference's
-    ``build_artifacts`` installs a sharder, under which ``"ep"`` takes its
-    ``shard_map`` path even on a 1x1 mesh (a capacity buffer that drops
-    tokens, measured 0.4% off the dense loss here); that path is
-    multi-device work the port does not have yet, and the port runs the
-    dense FFN whatever ``moe_impl`` says."""
+    Both take the default ``moe_impl="ep"``: each ``build_artifacts``
+    installs a sharder (the port's a sizes-only 1x1 one), so both run the
+    capacity-dropping expert-parallel FFN, as on a 1x1 mesh."""
     if kind == "exact":
         jpol = tpol = "*=exact"
     else:
         jpol = JPolicy.uniform(JConfig(variant=JVariant.PC3_TR, backward=kind))
         tpol = ApproxPolicy.uniform(DaismConfig(variant=Variant.PC3_TR,
                                                 backward=kind))
-    jcfg = jget(arch).smoke(moe_impl="dense", **F32).with_policy(jpol)
-    tcfg = tget(arch).smoke(moe_impl="dense", **F32).with_policy(tpol)
+    jcfg = jget(arch).smoke(**F32).with_policy(jpol)
+    tcfg = tget(arch).smoke(**F32).with_policy(tpol)
     mesh = jax.sharding.Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
                              ("data", "model"))
     ja = jbuild_artifacts(jcfg, mesh, warmup=1, total_steps=100)
