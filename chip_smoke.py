@@ -232,6 +232,23 @@ and prints the kernels' times beside their bounds. Phases:
               ``python -m repro_torch.launch.train --devices 1 --mesh
               1x1 --layers 2`` on the card, run again to resume.
 
+17. roofline — (a) phase 6's STE train step at 22 layers, B = 2,
+              S = 256, under remat none / dots / dots_nb / full, 2 steps
+              each: losses, grad norms and every parameter bit for bit
+              across the modes; ms, peak memory and GEMM launches a mode
+              (the kernel is recomputed under every mode but none: each
+              layer's 7 GEMMs, not the lm_head); (b)
+              TinyLlama's prefill (B = 1, S = 2048) and train step (B = 2,
+              S = 256) under *=exact: the dry-run's record on a 1x1 mesh
+              (terms, bottleneck, memory estimate) beside the step's
+              measured ms and allocator peak; (c) xLSTM-1.3B (8 layers)
+              and Zamba2-1.2B (7 layers) at published width over a 1x1
+              mesh at world size 1 (NCCL): a forward and 2 STE train
+              steps bit for bit the same steps without a mesh; (d) one
+              dry-run cell a family on the single-pod mesh (16 x 16, on
+              meta): tinyllama_1_1b train_4k, qwen3_moe_235b decode_32k,
+              xlstm_1_3b long_500k, zamba2_1_2b prefill_32k, each ok.
+
 Every check raises on failure and nothing is caught (checks 3c, 6, 9 and
 14c expect their errors), so any failure exits non-zero before the final
 line. TF32 is
@@ -552,6 +569,23 @@ TRAIN_MESH_LAUNCH = ["--arch", "tinyllama_1_1b", "--devices", "1", "--mesh",
                      "1x1", "--layers", "2", "--batch", "2", "--seq", "256",
                      "--ckpt-every", "2", "--log-every", "1", "--policy",
                      "*=pc3_tr:pallas"]
+
+
+# phase 17: the roofline, the dry-run and activation checkpointing. (a)
+# phase 6's STE step (22 layers, B = 2, S = 256) under each remat mode,
+# REMAT_STEPS steps each from seed 0 (step 1 has lr 0, step 2 moves the
+# parameters); (c) xLSTM-1.3B and Zamba2-1.2B at published width, cut to
+# FAMILY_LAYERS (xLSTM: 7 mLSTM blocks and its first sLSTM; Zamba: 6
+# Mamba blocks, the shared attention site, one tail block), a forward and
+# FAMILY_STEPS STE train steps of B x S = FAMILY_TOKENS over a 1x1 mesh at
+# world size 1; (d) one dry-run cell a family on the single-pod mesh
+REMAT_STEPS = 2
+FAMILY_LAYERS = {"xlstm_1_3b": 8, "zamba2_1_2b": 7}
+FAMILY_TOKENS, FAMILY_STEPS = (1, 64), 2
+DRYRUN_CELLS = (("tinyllama_1_1b", "train_4k"),
+                ("qwen3_moe_235b", "decode_32k"),
+                ("xlstm_1_3b", "long_500k"),
+                ("zamba2_1_2b", "prefill_32k"))
 
 
 def gemm_rtol(k: int) -> float:
@@ -4140,6 +4174,287 @@ def train_mesh(device, cfg, base_steps):
     return rec, n_a + n_b
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the roofline, the dry-run and activation checkpointing
+# ---------------------------------------------------------------------------
+
+def _steps_from_seed(art, device, n, batch, seq, vocab, params=None):
+    """``n`` train steps from ``init_params(0)`` (or a copy of ``params``)
+    on ``lm_batches(seed=0)``: (per-step ms, the metrics' tensors, the
+    final parameters flattened, GEMM launches, peak GiB)."""
+    import torch
+
+    from repro_torch.data import lm_batches
+    from repro_torch.kernels import daism_matmul as dm
+    from repro_torch.models.module import flatten, unflatten
+
+    if params is None:
+        params = art.init_params(0)
+    else:
+        params = unflatten({k: v.clone() for k, v in flatten(params).items()})
+    opt = art.init_opt(params)
+    batches = lm_batches(vocab, batch, seq, seed=0)
+    _sync(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    n0 = dm.launches
+    ms, metrics = [], []
+    for _ in range(n):
+        b = next(batches)
+        t0 = time.perf_counter()
+        params, opt, m = art.train_step(params, opt, b)
+        _sync(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append((m["loss"].clone(), m["grad_norm"].clone()))
+    launches = dm.launches - n0
+    del opt
+    return ms, metrics, flatten(params), launches, _peak_gib(device)
+
+
+def _bit_gaps(a_metrics, a_params, b_metrics, b_params):
+    """{what: gap} where two runs differ (empty: bit for bit)."""
+    import torch
+
+    gaps = {}
+    for i, ((al, ag), (bl, bg)) in enumerate(zip(a_metrics, b_metrics)):
+        for key, x, y in (("loss", al, bl), ("grad_norm", ag, bg)):
+            if not torch.equal(x, y):
+                gaps[f"step {i + 1} {key}"] = abs(float(x) - float(y))
+    for k, t in a_params.items():
+        if not torch.equal(t, b_params[k]):
+            gaps[k] = float((t.float() - b_params[k].float()).abs().max())
+    return gaps
+
+
+def remat_card(device, cfg):
+    """(a): phase 6's STE step under each remat mode; every mode bit for
+    bit the plain step. Returns (record, GEMM launches)."""
+    from repro_torch.launch.steps import build_artifacts
+    from repro_torch.models.transformer import REMAT_MODES
+
+    runs, rec, total = {}, {}, 0
+    per_fwd = None
+    for mode in REMAT_MODES:
+        art = build_artifacts(
+            dataclasses.replace(cfg, remat=mode).with_policy(GEN_POLICY),
+            device=device, warmup=1, total_steps=100)
+        per_fwd = per_fwd or approx_launches_per_step(art.model)
+        ms, metrics, params, n, peak = _steps_from_seed(
+            art, device, REMAT_STEPS, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab)
+        total += n
+        # kept on the host: the next mode's peak must not hold them
+        runs[mode] = ([(a.cpu(), b.cpu()) for a, b in metrics],
+                      {k: v.cpu() for k, v in params.items()})
+        del metrics, params
+        rec[mode] = dict(ms=ms, peak_gib=peak, launches=n,
+                         loss=float(runs[mode][0][-1][0]),
+                         grad_norm=float(runs[mode][0][-1][1]))
+        log(f"  (a) remat {mode:7s}: steps " + ", ".join(
+            f"{t:.1f}" for t in ms) + f" ms, peak {peak:.2f} GiB, "
+            f"daism_matmul launches {n} ({n / REMAT_STEPS:.0f} a step; a "
+            f"forward is {per_fwd}); loss {rec[mode]['loss']:.6f}")
+        del art
+        _free(device)
+    for mode in REMAT_MODES[1:]:
+        gaps = _bit_gaps(*runs[mode], *runs["none"])
+        if gaps:
+            worst = max(gaps.items(), key=lambda kv: kv[1])
+            raise SystemExit(f"(a) remat {mode} is not the plain step bit "
+                             f"for bit: {len(gaps)} differ, the largest "
+                             f"{worst[0]} by {worst[1]:.3g}")
+    n = {m: rec[m]["launches"] for m in REMAT_MODES}
+    recompute = n["full"] - n["none"]
+    if (n["none"] != REMAT_STEPS * per_fwd or n["dots"] != n["full"]
+            or n["dots_nb"] != n["full"]
+            or not 0 < recompute <= REMAT_STEPS * per_fwd):
+        raise SystemExit(f"(a) GEMM launches by mode {n}: none must be "
+                         f"{REMAT_STEPS} x {per_fwd}, every other mode the "
+                         "same, with at most one forward's recompute a step")
+    log(f"  (a) losses, grad norms and all {len(runs['none'][1])} parameters"
+        f" after {REMAT_STEPS} steps equal under every mode, bit for bit; "
+        f"the kernel is recomputed under every mode: {recompute // REMAT_STEPS}"
+        f" launches a step ({per_fwd} a forward; the lm_head's, outside the "
+        "checkpointed layers, is not)")
+    del runs
+    _free(device)
+    return rec, total
+
+
+def roofline_card(device, cfg):
+    """(b): TinyLlama's prefill (B = 1, S = 2048) and train step (B = 2,
+    S = 256) under *=exact: the dry-run's record on a 1x1 mesh beside the
+    step measured on the card. Returns the record."""
+    import torch
+
+    from repro_torch.data import lm_batches
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.steps import build_artifacts
+
+    exact = cfg.with_policy("*=exact")
+    rules = dryrun.rules_for("base", False)
+    out = {}
+    for label, shape in (("prefill", (PREFILL_SEQ, 1, "prefill")),
+                         ("train", (TRAIN_SEQ, TRAIN_BATCH, "train"))):
+        t0 = time.perf_counter()
+        rec = dryrun.roofline_record(exact, shape, {"data": 1, "model": 1},
+                                     rules, cfg.name, label, "1x1")
+        rec["trace_s"] = time.perf_counter() - t0
+        seq, b, kind = shape
+        art = build_artifacts(exact, device=device, warmup=1,
+                              total_steps=100)
+        params = art.init_params(0)
+        batches = lm_batches(cfg.vocab, b, seq, seed=0)
+        if kind == "prefill":
+            batch = {"tokens": next(batches)["tokens"]}
+
+            def run():
+                return art.prefill_step(params, batch)
+        else:
+            state = {"opt": art.init_opt(params), "p": params}
+
+            def run():
+                state["p"], state["opt"], _ = art.train_step(
+                    state["p"], state["opt"], next(batches))
+        run()                              # warm
+        _sync(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        ms = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            run()
+            _sync(device)
+            ms.append((time.perf_counter() - t1) * 1e3)
+        peak = torch.cuda.max_memory_allocated(device)
+        ms = sorted(ms)[1]
+        bound_ms = 1e3 * max(rec["compute_s"], rec["memory_s"],
+                             rec["collective_s"])
+        # the arguments and the trace's peak of live storages (its new
+        # outputs among them; the train step's update the arguments in
+        # place, so out_bytes, the reference's, would count them twice)
+        est = rec["arg_bytes"] + rec["temp_bytes"]
+        rec.update(ms=ms, bound_ms=bound_ms, peak_bytes=peak,
+                   ms_over_bound=ms / bound_ms, est_over_peak=est / peak)
+        out[label] = rec
+        log(f"  (b) {label} B={b} S={seq} exact: terms compute "
+            f"{rec['compute_s'] * 1e3:.3f} ms, memory "
+            f"{rec['memory_s'] * 1e3:.3f} ms, collective "
+            f"{rec['collective_s'] * 1e3:.3f} ms -> {rec['bottleneck']}; "
+            f"{rec['flops_per_device']:.4g} FLOPs, "
+            f"{rec['bytes_per_device']:.4g} bytes; measured {ms:.2f} ms = "
+            f"{ms / bound_ms:.2f} x the bound; memory estimate "
+            f"{est / 2**30:.2f} GiB (args {rec['arg_bytes'] / 2**30:.2f}, "
+            f"temps {rec['temp_bytes'] / 2**30:.2f}) vs allocator peak "
+            f"{peak / 2**30:.2f} GiB = {est / peak:.2f}; trace "
+            f"{rec['trace_s']:.1f} s")
+        del art, params, run
+        _free(device)
+    return out
+
+
+def families_mesh(device):
+    """(c): xLSTM-1.3B and Zamba2-1.2B at published width over a 1x1 mesh
+    at world size 1 (NCCL): a forward and STE train steps, bit for bit the
+    same steps without a mesh. Returns (record, GEMM launches)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batches
+    from repro_torch.kernels import daism_matmul as dm
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    from repro_torch.launch.steps import build_artifacts
+
+    dev = init_distributed(device)
+    if dev != device:
+        raise SystemExit(f"phase 17: the group put the rank on {dev}")
+    b, seq = FAMILY_TOKENS
+    rec, total = {}, 0
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        for arch, layers in FAMILY_LAYERS.items():
+            cfg = dataclasses.replace(get_config(arch),
+                                      n_layers=layers).with_policy(GEN_POLICY)
+            plain = build_artifacts(cfg, device=device, warmup=1,
+                                    total_steps=100)
+            sharded = build_artifacts(cfg, mesh, device=device, warmup=1,
+                                      total_steps=100)
+            params = plain.init_params(0)
+            batch = {"tokens": next(lm_batches(cfg.vocab, b, seq,
+                                               seed=0))["tokens"]}
+            n0 = dm.launches
+            t0 = time.perf_counter()
+            want = plain.prefill_step(params, batch)
+            _sync(device)
+            fwd_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            got = sharded.prefill_step(params, batch)
+            _sync(device)
+            mesh_ms = (time.perf_counter() - t0) * 1e3
+            _finite_logits(got, (b, seq, cfg.vocab), f"(c) {arch}")
+            if not torch.equal(got, want):
+                raise SystemExit(f"(c) {arch}: the forward under the 1x1 "
+                                 "mesh is not the plain one bit for bit")
+            ref = _steps_from_seed(plain, device, FAMILY_STEPS, b, seq,
+                                   cfg.vocab, params)
+            run = _steps_from_seed(sharded, device, FAMILY_STEPS, b, seq,
+                                   cfg.vocab, params)
+            gaps = _bit_gaps(run[1], run[2], ref[1], ref[2])
+            if gaps:
+                worst = max(gaps.items(), key=lambda kv: kv[1])
+                raise SystemExit(f"(c) {arch}: the train steps under the "
+                                 f"mesh differ in {len(gaps)}, the largest "
+                                 f"{worst[0]} by {worst[1]:.3g}")
+            n = dm.launches - n0
+            total += n
+            rec[arch] = dict(layers=layers, fwd_ms=fwd_ms, mesh_fwd_ms=mesh_ms,
+                             step_ms=run[0], ref_step_ms=ref[0],
+                             peak_gib=run[4], launches=n)
+            log(f"  (c) {arch} ({layers} of {get_config(arch).n_layers} "
+                f"layers) B={b} S={seq}: forward {mesh_ms:.1f} ms under "
+                f"the 1x1 mesh ({fwd_ms:.1f} ms without), train steps "
+                + ", ".join(f"{t:.1f}" for t in run[0]) + " ms (without: "
+                + ", ".join(f"{t:.1f}" for t in ref[0]) + f"); logits, "
+                f"losses, grad norms and all {len(ref[2])} parameters bit "
+                f"for bit; peak {run[4]:.2f} GiB; {n} GEMM launches")
+            del plain, sharded, params, ref, run, got, want
+            _free(device)
+    finally:
+        dist.destroy_process_group()
+    return rec, total
+
+
+def dryrun_cells():
+    """(d): one dry-run cell a family on the single-pod mesh (16 x 16, on
+    meta): each must end ok. Returns the records."""
+    from repro_torch.launch import dryrun
+
+    out = {}
+    for arch, shape in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, "single", verbose=False)
+        wall = time.perf_counter() - t0
+        if rec["status"] != "ok":
+            raise SystemExit(f"(d) {arch} x {shape}: {rec}")
+        rec["wall_s"] = wall
+        out[f"{arch}|{shape}"] = rec
+        log(f"  (d) {arch} x {shape} x single: compute "
+            f"{rec['compute_s']:.4f} s, memory {rec['memory_s']:.4f} s, "
+            f"collective {rec['collective_s']:.4f} s -> {rec['bottleneck']};"
+            f" {rec['mem_per_device_gb']:.2f} GB a device, useful "
+            f"{rec['useful_ratio']:.2f}; {wall:.1f} s wall")
+    return out
+
+
+def roofline_phase(device, cfg):
+    """Phase 17; returns (record, GEMM launches)."""
+    log(f"  {nvidia_smi_line()}")
+    rec = {}
+    rec["remat"], n_a = remat_card(device, cfg)
+    rec["roofline"] = roofline_card(device, cfg)
+    rec["families"], n_c = families_mesh(device)
+    rec["dryrun"] = dryrun_cells()
+    return rec, n_a + n_c
+
+
 def build_all():
     """nvcc of every kernel source, all started together; prints the
     -Xptxas -v lines and returns ({name: (path, seconds)}, those lines)."""
@@ -4332,6 +4647,12 @@ def main(argv=None) -> int:
     trec, train_mesh_gemm = train_mesh(device, cfg, steps)
     trec["seconds"] = time.perf_counter() - t16
 
+    log("== 17. roofline: remat, the roofline against the card, xLSTM and "
+        "Zamba over a mesh, the dry-run ==")
+    t17 = time.perf_counter()
+    rfrec, roof_gemm = roofline_phase(device, cfg)
+    rfrec["seconds"] = time.perf_counter() - t17
+
     log("== summary ==")
     log("  serve: " + report.summary().replace("\n", "\n  serve: "))
     for label, r in pre.items():
@@ -4422,6 +4743,18 @@ def main(argv=None) -> int:
         f"; (d) save {ta['save_s']:.2f} s, restore {ta['restore_s']:.2f} s, "
         f"launcher {trec['launcher']['launch_s'][0]:.1f} + "
         f"{trec['launcher']['launch_s'][1]:.1f} s")
+    ra_, rb_ = rfrec["remat"], rfrec["roofline"]
+    log(f"  roofline ({rfrec['seconds']:.1f} s): (a) remat step ms "
+        + ", ".join(f"{m} {r['ms'][-1]:.1f} ({r['peak_gib']:.2f} GiB)"
+                    for m, r in ra_.items())
+        + "; (b) " + ", ".join(
+            f"{k} {r['ms']:.2f} ms = {r['ms_over_bound']:.2f} x bound "
+            f"{r['bound_ms']:.3f} ms ({r['bottleneck']}), memory estimate "
+            f"{r['est_over_peak']:.2f} x peak" for k, r in rb_.items())
+        + "; (c) " + ", ".join(f"{k} forward {r['mesh_fwd_ms']:.1f} ms"
+                               for k, r in rfrec["families"].items())
+        + "; (d) " + ", ".join(f"{k} {r['wall_s']:.1f} s"
+                               for k, r in rfrec["dryrun"].items()))
     rep = next(r for r in rows if (r["variant"], r["m"], r["k"], r["n"])
                == REPRESENTATIVE)
     xrep = next(r for r in rows if (r["variant"], r["m"], r["k"], r["n"])
@@ -4435,7 +4768,7 @@ def main(argv=None) -> int:
         "launches": (serve_launches + pre_gemm + train_gemm + gen_gemm
                      + drv_gemm + cnn_gemm + more_gemm + zoo_gemm
                      + rest_gemm + lint_gemm + mesh_gemm
-                     + train_mesh_gemm),
+                     + train_mesh_gemm + roof_gemm),
         "max_abs_err": max(max_err, gemm_err, rrec["gemm_err"],
                            mrec["gemm_err"], mrec["moe"]["gemm_err"],
                            tb["gemm_err"]),

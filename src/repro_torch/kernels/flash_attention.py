@@ -336,11 +336,15 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CUDA tensors launch the kernel once, on the layout as it is; CPU tensors
     take :func:`flash_attention_bhsd_plain`; ``meta`` tensors (a shape-only
-    trace, ``analyze.trace_site_graph``) get a ``meta`` result, with
-    nothing run or counted.
+    trace, ``analyze.trace_site_graph``) get a ``meta`` result: nothing
+    runs, and the call is noted in an open ``roofline.flops.Tally``.
     """
     if all(t.device.type == "meta" for t in (q, k, v)):
-        return torch.empty_like(q)
+        from repro_torch.roofline.flops import note_kernel_call
+
+        out = torch.empty_like(q)
+        note_kernel_call("flash_attention", (q, k, v), out)
+        return out
     if q.device.type == "cuda":
         _require_kernel_block_k(block_k)
         return flash_attention_bhsd_kernel(q, k, v, causal=causal,

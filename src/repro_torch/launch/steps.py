@@ -37,9 +37,16 @@ data ranks, leaves whole over ``data`` are all-reduced), the clip reads
 the global norm, and the logged loss is the global batch's. Prefill and
 decode take this rank's rows (a decode step on its shard of
 ``init_cache``: its rows, its kv heads) and give their logits over the
-whole vocabulary. Only the decoders (dense, MoE, VLM) and Whisper's
-encoder-decoder are laid out over a mesh larger than 1x1 (ROADMAP C6
-queues xLSTM and Zamba).
+whole vocabulary. Every family is laid out over a mesh of any size; heads
+that a ``model`` axis cuts inside are gathered and computed whole on every
+rank (``models/layers.py``).
+
+``device="meta"`` builds the same steps for a shape-only trace
+(``launch/dryrun.py``): ``init_params`` gives this rank's shards as
+``meta`` tensors, and under a sizes-only mesh (``{axis: size}``) the
+collectives return the shapes a process group would (``parallel/
+sharding.py``). ``rules`` replaces the reference's rule table
+(``parallel.sharding.base_rules``).
 
 Every family trains and prefills alike: an audio batch carries
 ``frames`` beside ``tokens`` and ``labels``.
@@ -47,11 +54,11 @@ Every family trains and prefills alike: an audio batch carries
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from repro_torch.core.config import torch_dtype
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.convert import shard_params
 from repro_torch.models.module import flatten, unflatten
@@ -62,32 +69,39 @@ from repro_torch.parallel.sharding import (NamedSharding, Sharder,
                                            base_rules, mesh_axis_names,
                                            use_sharder)
 
-# families whose layers take their shards over a mesh larger than 1x1
-MESH_FAMILIES = ("dense", "moe", "vlm", "audio")
-
 # ---------------------------------------------------------------------------
-# Cache logical axes (keyed by leaf name + rank: the reference's table, its
-# entries for the caches of MESH_FAMILIES)
+# Cache logical axes (keyed by leaf name + rank: the reference's table)
 # ---------------------------------------------------------------------------
 
 _CACHE_AXES = {
     ("k", 5): ("layers", "cache_batch", "cache_seq", "act_kv_heads", None),
     ("v", 5): ("layers", "cache_batch", "cache_seq", "act_kv_heads", None),
+    ("k", 4): ("cache_batch", "cache_seq", "act_kv_heads", None),
+    ("v", 4): ("cache_batch", "cache_seq", "act_kv_heads", None),
     ("abs_pos", 2): ("layers", "cache_seq"),
+    ("abs_pos", 1): ("cache_seq",),
+    ("conv", 4): ("layers", "cache_batch", None, "act_mlp"),
+    ("ssm", 5): ("layers", "cache_batch", "act_heads", None, None),
     ("enc", 3): ("cache_batch", "frames", "act_embed"),
+    ("pos", 0): (),
 }
 
 
 def cache_axes(cache, name: Optional[str] = None) -> Any:
     """The logical axes of every leaf of a cache tree (dicts and tuples),
-    by the leaf's nearest dict key and its rank; a leaf the table does
-    not name (``pos``; the caches of families laid out on one device
-    only) is whole on every rank."""
+    by the leaf's nearest dict key and its rank; a leaf the table does not
+    name (xLSTM's state tuples) takes its rows over the batch axes after
+    its stacked layer dim, as in the reference."""
     if isinstance(cache, dict):
         return {k: cache_axes(v, k) for k, v in cache.items()}
     if isinstance(cache, tuple):
         return tuple(cache_axes(v, name) for v in cache)
-    return _CACHE_AXES.get((name, cache.dim()), (None,) * cache.dim())
+    rank = cache.dim()
+    if (name, rank) in _CACHE_AXES:
+        return _CACHE_AXES[(name, rank)]
+    if rank >= 2:
+        return ("layers", "cache_batch") + (None,) * (rank - 2)
+    return (None,) * rank
 
 
 def _tree_map(fn, *trees):
@@ -123,38 +137,19 @@ class Artifacts:
     init_cache: Callable[[int, int], Dict[str, torch.Tensor]]
 
 
-def _check_mesh_family(cfg: ArchConfig, sharder: Sharder) -> None:
-    """Refuse what the sharded layers do not lay out, under a mesh larger
-    than 1x1 (never silently wrong)."""
-    if math.prod(sharder.size(a) for a in sharder.axis_names) == 1:
-        return
-    if cfg.family not in MESH_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} over a "
-            f"{ {a: sharder.size(a) for a in sharder.axis_names} } mesh is "
-            "not ported (ROADMAP.md "
-            f"section C, item 6); families {MESH_FAMILIES} train over a "
-            "mesh, every family on one device")
-    n = sharder.size("model")
-    for what, count in (("n_heads", cfg.n_heads), ("kv_heads", cfg.kv_heads)):
-        if count % n:
-            raise NotImplementedError(
-                f"{cfg.name}: {what}={count} does not divide over a "
-                f"{n}-way model axis (the reference replicates it; the "
-                "port's head-local attention needs it split)")
-
-
 def build_artifacts(cfg: ArchConfig, mesh=None, *, device="cuda",
                     opt_cfg: AdamWConfig = AdamWConfig(),
+                    rules: Optional[dict] = None,
                     total_steps: int = 100_000,
                     warmup: int = 1000) -> Artifacts:
     """The steps for ``cfg`` on ``device`` (default: the card; under a
-    mesh, this rank's device), laid out over ``mesh`` (a named
-    ``DeviceMesh``; None: one device, under a sizes-only sharder)."""
+    mesh, this rank's device; ``meta``: a shape-only trace), laid out over
+    ``mesh`` (a named ``DeviceMesh``, or an ``{axis: size}`` dict for the
+    sizes-only sharder; None: one device, under a sizes-only 1x1 one) by
+    ``rules`` (default: ``base_rules`` for the mesh's axes)."""
     names = mesh_axis_names(mesh) if mesh is not None else ("data", "model")
     sharder = Sharder(mesh if mesh is not None else {"data": 1, "model": 1},
-                      base_rules("pod" in names))
-    _check_mesh_family(cfg, sharder)
+                      rules or base_rules("pod" in names))
     model = build_model(cfg, device=device)
     dev = model.device
     specs = model.param_specs()
@@ -255,7 +250,13 @@ def build_artifacts(cfg: ArchConfig, mesh=None, *, device="cuda",
 
     def init_params(seed: int = 0):
         """The whole tree from ``seed`` (the same on every rank), cut to this
-        rank's shards."""
+        rank's shards (on ``meta``: the shards' shapes, nothing drawn)."""
+        if dev.type == "meta":
+            return unflatten({
+                path: torch.empty(sharder.local_shape(
+                    shape, layout[path].spec), dtype=torch_dtype(dtype),
+                    device=dev)
+                for path, (shape, dtype, _) in specs.items()})
         with torch.no_grad():
             params = model.init(seed)
             if mesh is None:

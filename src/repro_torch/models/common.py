@@ -63,12 +63,15 @@ class ArchConfig:
     # Per-site approximation policy (repro.policy). Takes precedence over
     # ``daism`` when set.
     policy: Optional[ApproxPolicy] = None
-    # kept for parity with the JAX package's configs; the port runs its
-    # layer stack as a loop and has no activation checkpointing yet
-    remat: str = "none"       # none | dots | full
+    # activation checkpointing of each layer in a training forward
+    # (models/transformer.py::apply_remat)
+    remat: str = "none"       # none | dots | dots_nb | full
     scan_layers: bool = True
 
     def __post_init__(self) -> None:
+        if self.remat not in ("none", "dots", "dots_nb", "full"):
+            raise ValueError(f"{self.name}: remat={self.remat!r}: one of "
+                             "none, dots, dots_nb, full")
         # fail at construction, not deep inside a kernel trace: every config
         # a site can resolve to must be runnable on the compute dtype
         for where, dcfg in self._numerics_configs():

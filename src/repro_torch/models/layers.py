@@ -25,6 +25,13 @@ explicit collectives where the reference's GSPMD inserts them:
   heads read its slice of the kv-head pool (GQA grouping is contiguous:
   q heads ``[j*nh/n, ...)`` read kv heads ``[j*kh/n, ...)``), so the
   block-table gather/scatter never crosses ranks.
+* attention is head-local where the ``model`` axis splits q and kv heads
+  alike into whole heads (:func:`heads_local`). Where it cuts inside a
+  head (4 kv heads of 64 on a 16-way axis: a rank holds a quarter of one),
+  q, k and v are all-gathered to every head (:func:`whole_cols`), the
+  attention runs on all of them on every rank, as GSPMD's resharding
+  does, and ``wo`` takes this rank's part of its K (``sharded_dot``).
+  The recurrent models lay out the same way (``xlstm.py``, ``zamba.py``).
 
 Under the train rules the batch rows are split over the data axes
 (``act_batch``), and so is every weight's ``embed`` dim (FSDP, ZeRO-3).
@@ -47,7 +54,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.config import torch_dtype
 from repro_torch.parallel.sharding import (current_sharder, shard_index,
-                                           shard_tensor)
+                                           shard_tensor, spec_axes)
 from repro_torch.policy import OpKind, attention_kernel, policy_dot, resolve_site
 
 from .common import ArchConfig
@@ -79,6 +86,66 @@ def fsdp_whole(w: torch.Tensor, axes, shape) -> torch.Tensor:
     return w
 
 
+def whole_param(w: torch.Tensor, axes, shape) -> torch.Tensor:
+    """A parameter gathered whole along every dim the sharder splits, under
+    a sharder (``w`` itself otherwise): an FSDP dim sums its gradient over
+    the data ranks, a ``model`` dim serves the same work on every model
+    rank (its gradient: this rank's part)."""
+    sharder = current_sharder()
+    if sharder is None:
+        return w
+    for dim, entry in enumerate(sharder.spec(axes, shape)):
+        w = sharder.all_gather(w, entry, dim, downstream="per_rank"
+                               if sharder.is_fsdp(entry) else "same")
+    return w
+
+
+def out_entry(sharder, axes, shape):
+    """The spec entry a (K, N) weight's N is split over (None: whole, or
+    split only by FSDP, which ``sharded_dot`` gathers)."""
+    entry = (sharder.spec(axes, shape) + (None, None))[1]
+    return None if sharder.is_fsdp(entry) else entry
+
+
+def whole_cols(x: torch.Tensor, axes, shape) -> torch.Tensor:
+    """A ``dense`` output (local along a split N) gathered to the whole N
+    on every rank, under a sharder; ``x`` otherwise. What follows must be
+    the same work on every rank (the gradient keeps this rank's part)."""
+    sharder = current_sharder()
+    if sharder is None:
+        return x
+    return sharder.all_gather(x, out_entry(sharder, axes, shape), -1,
+                              downstream="same")
+
+
+def local_part(x: torch.Tensor, axes, shape, dim: int) -> torch.Tensor:
+    """This rank's part of a whole ``x`` along ``dim``, cut as a tensor of
+    logical ``axes`` and global ``shape`` is cut there, under a sharder;
+    ``x`` otherwise. Each rank uses its own part, so the gradient of the
+    whole is summed over the axis."""
+    sharder = current_sharder()
+    if sharder is None:
+        return x
+    entry = (sharder.spec(axes, shape) + (None,) * len(shape))[dim]
+    spec = [None] * x.dim()
+    spec[dim] = entry
+    return shard_tensor(sharder, sharder.sum_grad(x, entry), tuple(spec),
+                        sharder.coords())
+
+
+def heads_local(cfg: ArchConfig) -> bool:
+    """Whether the ``model`` split of ``wq`` and of ``wk``/``wv`` gives
+    every rank whole heads, the same share of q and kv heads (always,
+    without a sharder)."""
+    sharder = current_sharder()
+    if sharder is None:
+        return True
+    d = cfg.d_model
+    nq = sharder.ways(out_entry(sharder, ATTN_AXES["wq"], (d, cfg.q_dim)))
+    nk = sharder.ways(out_entry(sharder, ATTN_AXES["wk"], (d, cfg.kv_dim)))
+    return nq == nk and cfg.n_heads % nq == 0 and cfg.kv_heads % nk == 0
+
+
 def sharded_dot(cfg: ArchConfig, x: torch.Tensor, w: torch.Tensor, *,
                 name: str, kind: OpKind, axes, shape):
     """``x @ w`` where ``w`` is this rank's shard of a (K, N) = ``shape``
@@ -103,6 +170,11 @@ def sharded_dot(cfg: ArchConfig, x: torch.Tensor, w: torch.Tensor, *,
                      global_kn=tuple(shape))
     if k_entry is not None:  # row-parallel: the partial sums, summed
         out = sharder.all_reduce(out, k_entry, downstream="same")
+    if n_entry is not None and "model" not in spec_axes(n_entry):
+        # an N over the data axes (the serve rules' ``embed``): the
+        # activations between the layers are whole
+        out = sharder.all_gather(out, n_entry, -1, downstream="same")
+        n_entry = None
     return out, n_entry
 
 
@@ -113,21 +185,29 @@ def dense(ctx: Ctx, name: str, x: torch.Tensor, cfg: ArchConfig, *,
     ``shape`` (K, N) are the weight's logical axes and global shape, read
     only under a sharder (see the module doc)."""
     w = ctx.param(name)
-    out, _ = sharded_dot(cfg, x, w, name=name, kind=kind, axes=axes,
-                         shape=shape)
+    out, n_entry = sharded_dot(cfg, x, w, name=name, kind=kind, axes=axes,
+                               shape=shape)
     if use_bias:
         b = ctx.param(name + "_b")
-        if axes is not None:
-            b = fsdp_whole(b, axes[-1:], shape[-1:])
+        sharder = current_sharder()
+        if sharder is not None and axes is not None:
+            # laid out as ``out``: local along N's split, else whole
+            entry = (sharder.spec(axes[-1:], shape[-1:]) + (None,))[0]
+            if entry != n_entry:
+                b = whole_param(b, axes[-1:], shape[-1:])
         out = out + b.to(out.dtype)
     return out
 
 
 def norm(ctx: Ctx, name: str, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    scale = ctx.param(name + "_scale")
+    """RMS or layer norm over the last dim; the scale and bias are whole on
+    every rank (``act_embed``: split over the data axes by the serve
+    rules, gathered here)."""
+    d = (cfg.d_model,)
+    scale = whole_param(ctx.param(name + "_scale"), ("act_embed",), d)
     xf = x.to(torch.float32)
     if cfg.norm == "layernorm":
-        bias = ctx.param(name + "_bias")
+        bias = whole_param(ctx.param(name + "_bias"), ("act_embed",), d)
         mu = xf.mean(-1, keepdim=True)
         var = ((xf - mu) ** 2).mean(-1, keepdim=True)
         y = (xf - mu) * torch.rsqrt(var + 1e-5) * scale + bias
@@ -377,6 +457,23 @@ def _slot_kv_attend(q, k, v, cache, positions, cfg: ArchConfig, *, causal):
     return out, new_cache
 
 
+def _qkv(ctx: Ctx, x: torch.Tensor, kv_src: torch.Tensor, cfg: ArchConfig,
+         use_bias: bool):
+    """q from ``x`` and k, v from ``kv_src``, (B, S, H, HD) each: this
+    rank's heads where they are head-local, else every head (module doc)."""
+    hd, d = cfg.head_dim, cfg.d_model
+    local = heads_local(cfg)
+    out = []
+    for name, src, n in (("wq", x, cfg.q_dim), ("wk", kv_src, cfg.kv_dim),
+                         ("wv", kv_src, cfg.kv_dim)):
+        t = dense(ctx, name, src, cfg, use_bias=use_bias,
+                  axes=ATTN_AXES[name], shape=(d, n))
+        if not local:
+            t = whole_cols(t, ATTN_AXES[name], (d, n))
+        out.append(t.reshape(*src.shape[:2], -1, hd))
+    return out
+
+
 def self_attention(ctx: Ctx, x: torch.Tensor, cfg: ArchConfig, *,
                    positions: torch.Tensor, cache: Optional[dict] = None,
                    causal: bool = True, use_bias: bool = False
@@ -387,14 +484,9 @@ def self_attention(ctx: Ctx, x: torch.Tensor, cfg: ArchConfig, *,
     (``paged_step``: ``cache`` holds the layer's pool and the resolved
     ``write_idx`` / ``phys_read`` indices). Under a sharder the heads are
     this rank's (module doc)."""
-    hd, d = cfg.head_dim, cfg.d_model
+    d = cfg.d_model
     b, s, _ = x.shape
-    q = dense(ctx, "wq", x, cfg, use_bias=use_bias, axes=ATTN_AXES["wq"],
-              shape=(d, cfg.q_dim)).reshape(b, s, -1, hd)
-    k = dense(ctx, "wk", x, cfg, use_bias=use_bias, axes=ATTN_AXES["wk"],
-              shape=(d, cfg.kv_dim)).reshape(b, s, -1, hd)
-    v = dense(ctx, "wv", x, cfg, use_bias=use_bias, axes=ATTN_AXES["wv"],
-              shape=(d, cfg.kv_dim)).reshape(b, s, -1, hd)
+    q, k, v = _qkv(ctx, x, x, cfg, use_bias)
     if cfg.rope_theta:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
@@ -433,15 +525,10 @@ def cross_attention(ctx: Ctx, x: torch.Tensor, kv_src: torch.Tensor,
     """Full (non-causal) cross attention against encoder/image states;
     under a sharder the heads are this rank's, as in
     :func:`self_attention`."""
-    hd, d = cfg.head_dim, cfg.d_model
+    d = cfg.d_model
     b, s, _ = x.shape
     skv = kv_src.shape[1]
-    q = dense(ctx, "wq", x, cfg, use_bias=use_bias, axes=ATTN_AXES["wq"],
-              shape=(d, cfg.q_dim)).reshape(b, s, -1, hd)
-    k = dense(ctx, "wk", kv_src, cfg, use_bias=use_bias, axes=ATTN_AXES["wk"],
-              shape=(d, cfg.kv_dim)).reshape(b, skv, -1, hd)
-    v = dense(ctx, "wv", kv_src, cfg, use_bias=use_bias, axes=ATTN_AXES["wv"],
-              shape=(d, cfg.kv_dim)).reshape(b, skv, -1, hd)
+    q, k, v = _qkv(ctx, x, kv_src, cfg, use_bias)
     out = attend(q, k, v, torch.arange(s, device=x.device),
                  torch.arange(skv, device=x.device), causal=False,
                  chunk=skv,  # single chunk: small KV, uniform attn trips

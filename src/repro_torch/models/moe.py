@@ -49,9 +49,10 @@ import torch.nn.functional as F
 
 from repro_torch.parallel.sharding import current_sharder, shard_tensor
 from repro_torch.policy import policy_expert_matmul
+from repro_torch.roofline.flops import run_steps
 
 from .common import ArchConfig
-from .layers import activate
+from .layers import activate, whole_param
 from .module import Ctx
 
 ROUTER_ROWS = 128  # the rows of the router's one GEMM shape
@@ -72,12 +73,16 @@ def router_logits(x2d: torch.Tensor, router_w: torch.Tensor) -> torch.Tensor:
     logits do not depend on the rows beside it."""
     x = x2d.to(torch.float32)
     w = router_w.to(torch.float32)
-    t = x.shape[0]
+    t, d = x.shape
     pad = (-t) % ROUTER_ROWS
     if pad:
         x = F.pad(x, (0, 0, 0, pad))
-    return torch.cat([x[i:i + ROUTER_ROWS] @ w
-                      for i in range(0, x.shape[0], ROUTER_ROWS)])[:t]
+    n = x.shape[0] // ROUTER_ROWS
+    # the blocks as the steps of a loop (one step, counted n times, in a
+    # meta trace: roofline.flops.run_steps)
+    _, out = run_steps(lambda st, xb: (st, xb @ w), (),
+                       (x.reshape(1, n, ROUTER_ROWS, d),), n)
+    return out.reshape(n * ROUTER_ROWS, -1)[:t]
 
 
 def _route(x2d: torch.Tensor, router_w: torch.Tensor, cfg: ArchConfig):
@@ -161,17 +166,6 @@ def _local_dispatch_compute(x2d, ids, probs, w_in, w_gate, w_out, e0: int,
             * probs.to(out_slots.dtype)[..., None]).sum(dim=1)
 
 
-def _gathered(sharder, w, axes, shape):
-    """The whole of a sharded tensor of global ``shape``: its shards
-    all-gathered along every dim the sharder splits (an FSDP dim sums its
-    gradient over the data ranks; a ``model`` dim serves the same dense
-    work on every model rank)."""
-    for dim, entry in enumerate(sharder.spec(axes, shape)):
-        w = sharder.all_gather(w, entry, dim, downstream="per_rank"
-                               if sharder.is_fsdp(entry) else "same")
-    return w
-
-
 def moe_ffn(ctx: Ctx, x: torch.Tensor, cfg: ArchConfig
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """MoE feed-forward. x: (B, S, d). Returns (out, aux_loss). Parameters
@@ -205,12 +199,12 @@ def moe_ffn(ctx: Ctx, x: torch.Tensor, cfg: ArchConfig
             f"a {dp_size}-way data axis; EP needs the experts ({e}) to "
             f"divide over model ({n_model}) and batch ({batch}), d ({d}) "
             f"and expert_ff ({ff}) to divide over data")
-    router_w = _gathered(sharder, router_w, ("embed", None), (d, e))
+    router_w = whole_param(router_w, ("embed", None), (d, e))
     if not use_ep:
-        w_in, w_out = (_gathered(sharder, w_in, EXPERT_IN_AXES, (e, d, ff)),
-                       _gathered(sharder, w_out, EXPERT_OUT_AXES, (e, ff, d)))
+        w_in, w_out = (whole_param(w_in, EXPERT_IN_AXES, (e, d, ff)),
+                       whole_param(w_out, EXPERT_OUT_AXES, (e, ff, d)))
         if gated:
-            w_gate = _gathered(sharder, w_gate, EXPERT_IN_AXES, (e, d, ff))
+            w_gate = whole_param(w_gate, EXPERT_IN_AXES, (e, d, ff))
         return _dense_moe(x, router_w, w_in, w_gate, w_out, cfg)
 
     # FSDP: gather the contraction dim of the expert weights just in time

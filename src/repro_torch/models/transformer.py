@@ -25,13 +25,14 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.core.config import torch_dtype
-from repro_torch.parallel.sharding import current_sharder
+from repro_torch.parallel.sharding import current_sharder, use_sharder
 from repro_torch.policy import OpKind, plan_segments, site_scope
+from repro_torch.policy.sites import scope_snapshot, use_scope
 from repro_torch.runtime.device import resolve_device
 
 from .common import ArchConfig
 from .layers import (ATTN_AXES, FFN_AXES, cross_attention, embed,
-                     fsdp_whole, mlp, norm, self_attention, unembed)
+                     mlp, norm, self_attention, unembed, whole_param)
 from .module import (Ctx, ParamSpec, axes_tree, init_params, layer_slice,
                      lecun_init, normal_init, ones_init, zeros_init)
 from .moe import EXPERT_IN_AXES, EXPERT_OUT_AXES, moe_ffn
@@ -111,9 +112,67 @@ def cross_block(ctx: Ctx, cfg: ArchConfig, x, kv_src):
     return x
 
 
+REMAT_MODES = ("none", "dots", "dots_nb", "full")
+# the exact matmuls "dots" saves (the reference's checkpoint_dots: every
+# dot_general) and "dots_nb" (checkpoint_dots_with_no_batch_dims: the
+# unbatched ones, the weight GEMMs)
+_DOTS = {"dots": ("mm", "addmm", "bmm", "baddbmm", "matmul"),
+         "dots_nb": ("mm", "addmm")}
+
+
+def _save_dots(names, ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    name = getattr(op, "_overloadpacket", op).__name__
+    return (CheckpointPolicy.MUST_SAVE if name in names
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def apply_remat(fn, remat: str):
+    """``fn`` under the reference's activation-checkpoint policy
+    (``torch.utils.checkpoint``, non-reentrant; the values do not change):
+
+    * ``"none"``: ``fn`` itself;
+    * ``"dots"``: saves the outputs of every exact matmul (``aten.mm``,
+      ``addmm``, ``bmm``, ``matmul``; the attention scores too) and
+      recomputes the rest (selective checkpointing);
+    * ``"dots_nb"``: saves only the unbatched ones (``mm``, ``addmm``: the
+      weight GEMMs); the attention scores are recomputed;
+    * ``"full"``: saves nothing, recomputes everything.
+
+    A hand-written kernel (the DAISM GEMM, flash) is no aten matmul, as a
+    ``pallas_call`` is no ``dot_general``: every mode recomputes it, as
+    the reference's does. The recompute runs under the site scopes and the
+    sharder of the forward. Any other string raises."""
+    if remat not in REMAT_MODES:
+        raise ValueError(f"remat={remat!r}: one of {REMAT_MODES}")
+    if remat == "none":
+        return fn
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+
+    kw = {}
+    if remat in _DOTS:
+        policy = functools.partial(_save_dots, _DOTS[remat])
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, policy)
+
+    def wrapped(*args):
+        scope, sharder = scope_snapshot(), current_sharder()
+
+        def run(*a):
+            with use_scope(scope), use_sharder(sharder):
+                return fn(*a)
+
+        return checkpoint(run, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
+
+    return wrapped
+
+
 def run_policy_segments(layer_fn, stacked_params: Params, x, *, segments,
                         base: int = 0, cache: Optional[Params] = None,
-                        prefix: str = "layer"):
+                        prefix: str = "layer", remat: str = "none"):
     """Run ``x`` through the layer stack, segment by segment; returns (x,
     the sum of the layers' aux losses).
 
@@ -124,14 +183,16 @@ def run_policy_segments(layer_fn, stacked_params: Params, x, *, segments,
     per-depth rules resolve against its first layer, as in the reference's
     segmented scans — with one ``layer_fn(ctx, x, cache)`` call per layer
     on that layer's row of the stacked params (and of the stacked cache,
-    whose rows are views, so in-place updates land in the caller's cache).
+    whose rows are views, so in-place updates land in the caller's cache),
+    each under :func:`apply_remat` ``remat``.
     """
+    layer = apply_remat(lambda p, h, c: layer_fn(Ctx(p), h, c), remat)
     aux = 0.0
     for lo, hi in segments:
         with site_scope(f"{prefix}_{lo}", repeat=hi - lo):
             for i in range(lo - base, hi - base):
                 c = None if cache is None else layer_slice(cache, i)
-                x, _, a = layer_fn(Ctx(layer_slice(stacked_params, i)), x, c)
+                x, _, a = layer(layer_slice(stacked_params, i), x, c)
                 aux = aux + a
     return x, aux
 
@@ -274,27 +335,30 @@ class DecoderLM:
         return axes_tree(self.param_specs())
 
     def _layers(self, params: Params, x, layer_fn, cache=None,
-                image_embeds=None):
+                image_embeds=None, remat: str = "none"):
         """The layer stack under the ``decoder`` scope: the policy segments
         in one run, or for a VLM in groups of ``cross_every`` layers, each
-        followed by its cross block against ``image_embeds``. Returns (x,
-        the summed aux loss: a tensor for an MoE, else 0.0)."""
+        followed by its cross block against ``image_embeds``, every block
+        under ``remat`` (``apply_remat``). Returns (x, the summed aux loss:
+        a tensor for an MoE, else 0.0)."""
         cfg = self.cfg
         if not self.is_vlm:
             x, aux = run_policy_segments(layer_fn, params["blocks"], x,
-                                         segments=self.segments, cache=cache)
+                                         segments=self.segments, cache=cache,
+                                         remat=remat)
         else:
             img = image_embeds.to(x.dtype)
             per, aux = cfg.cross_every, 0.0
+            cross = apply_remat(
+                lambda cp, h: cross_block(Ctx(cp), cfg, h, img), remat)
             for g in range(self.n_cross):
                 x, a = run_policy_segments(
                     layer_fn, params["blocks"], x, cache=cache,
                     segments=clip_segments(self.segments, g * per,
-                                           (g + 1) * per))
+                                           (g + 1) * per), remat=remat)
                 aux = aux + a
                 with site_scope(f"cross_{g}"):
-                    x = cross_block(Ctx(layer_slice(params["cross_blocks"], g)),
-                                    cfg, x, img)
+                    x = cross(layer_slice(params["cross_blocks"], g), x)
         return x, aux
 
     # -- forward (train / prefill) ----------------------------------------
@@ -314,7 +378,8 @@ class DecoderLM:
         with site_scope("decoder"):
             x = embed(ctx, tokens, cfg)
             x, aux = self._layers(params, x, layer_fn,
-                                  image_embeds=batch.get("image_embeds"))
+                                  image_embeds=batch.get("image_embeds"),
+                                  remat=cfg.remat)
             x = norm(ctx, "final_ln", x, cfg)
             logits = unembed(ctx, x, cfg)
         if not torch.is_tensor(aux):  # no experts: the reference's 0.0
@@ -610,7 +675,7 @@ class EncDecLM:
         """frames (B, enc_frames, d) -> encoder states, compute dtype."""
         cfg = self.cfg
         dt = torch_dtype(cfg.compute_dtype)
-        pos = fsdp_whole(params["enc_pos"], ("frames", "embed"),
+        pos = whole_param(params["enc_pos"], ("frames", "embed"),
                          (cfg.enc_frames, cfg.d_model))
         x = frames.to(dt) + pos.to(dt)
         positions = torch.arange(frames.shape[1], device=frames.device)
@@ -620,7 +685,8 @@ class EncDecLM:
 
         with site_scope("encoder"):
             x, _ = run_policy_segments(enc_fn, params["enc_blocks"], x,
-                                       segments=self.enc_segments)
+                                       segments=self.enc_segments,
+                                       remat=cfg.remat)
         return x
 
     def forward(self, params: Params, batch: Dict[str, torch.Tensor]):
@@ -639,7 +705,8 @@ class EncDecLM:
         with site_scope("decoder"):
             x = embed(ctx, tokens, cfg)
             x, _ = run_policy_segments(dec_fn, params["dec_blocks"], x,
-                                       segments=self.dec_segments)
+                                       segments=self.dec_segments,
+                                       remat=cfg.remat)
             x = norm(ctx, "final_ln", x, cfg)
             logits = unembed(ctx, x, cfg)
         return logits, torch.zeros((), dtype=torch.float32,

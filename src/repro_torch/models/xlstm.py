@@ -5,7 +5,13 @@ max-stabiliser state, matrix memory per head in the mLSTM, block-diagonal
 recurrence in the sLSTM. Every projection routes through ``dense`` (the
 DAISM GEMM where the policy says so); the recurrences are elementwise and
 stay plain torch ops in f32 (``rnn_state_dtype``). The reference's
-``lax.scan`` over time is a Python loop over the sequence here.
+``lax.scan`` over time is a Python loop over the sequence here
+(``roofline.flops.run_steps``).
+
+Under a sharder the input projections are gathered whole over ``model``
+and the cells run on every head on every rank; ``wo``/``w_down`` take this
+rank's part of their K (row-parallel), and the states are whole over
+``model`` (the cache splits them by batch rows only, as the reference's).
 
 Parameters are the reference's tree: the mLSTM and sLSTM blocks are two
 separate stacks, so a stack's row is not the global layer number; the
@@ -23,16 +29,19 @@ import torch
 
 from repro_torch.core.config import torch_dtype
 from repro_torch.policy import OpKind, plan_segments, site_scope
+from repro_torch.roofline.flops import run_steps
 from repro_torch.runtime.device import resolve_device
 
 from .common import ArchConfig
-from .layers import dense, embed, norm, unembed
+from .layers import dense, embed, norm, unembed, whole_cols, whole_param
 from .module import (Ctx, ParamSpec, axes_tree, init_params, layer_slice,
                      normal_init)
 from .transformer import (block_specs, clip_segments, lm_specs,
                           run_policy_segments)
 
 Params = Dict[str, object]
+# the logical axes of the cells' projections (in: embed -> heads)
+_IN, _OUT = ("embed", "heads"), ("heads", "embed")
 
 
 # ---------------------------------------------------------------------------
@@ -58,18 +67,29 @@ def _mlstm_step(state, q, k, v, i_pre, f_pre):
     return (C, n, m_new), num / den[..., None]
 
 
+def _proj(ctx: Ctx, x, cfg: ArchConfig, name: str, n: int):
+    """An input projection (d -> n), whole on every rank: under a sharder
+    its columns are gathered over ``model`` (the layers' module doc), so
+    the cell runs on every head, as the reference's GSPMD resharding does
+    where a 16-way axis cuts inside xLSTM-1.3B's 4 heads or ``wgate``'s
+    ``[i | f | o]``."""
+    axes, shape = _IN, (cfg.d_model, n)
+    return whole_cols(dense(ctx, name, x, cfg, axes=axes, shape=shape),
+                      axes, shape)
+
+
 def mlstm_cell(ctx: Ctx, x: torch.Tensor, cfg: ArchConfig, state=None):
     """x (B, S, d). Returns (y (B, S, d), the final state)."""
     b, s, d = x.shape
     nh = cfg.n_heads
     hd = d // nh
-    q = dense(ctx, "wq", x, cfg)
+    q = _proj(ctx, x, cfg, "wq", d)
     # sqrt(hd) rounded to x's dtype, as the reference takes it (on the
     # host: a device scalar would cost a copy a call)
     scale = float(torch.tensor(hd, dtype=x.dtype).sqrt())
-    k = dense(ctx, "wk", x, cfg) / scale
-    v = dense(ctx, "wv", x, cfg)
-    gates = dense(ctx, "wgate", x, cfg)
+    k = _proj(ctx, x, cfg, "wk", d) / scale
+    v = _proj(ctx, x, cfg, "wv", d)
+    gates = _proj(ctx, x, cfg, "wgate", 3 * nh)
     i_pre, f_pre, o_pre = torch.chunk(gates.to(torch.float32), 3, dim=-1)
     f_pre = f_pre + 1.0  # forget-gate bias toward remembering
 
@@ -85,18 +105,14 @@ def mlstm_cell(ctx: Ctx, x: torch.Tensor, cfg: ArchConfig, state=None):
                             device=x.device))
     else:
         state = (state[0].to(sd), state[1].to(sd), state[2])
-    hs = []
-    for t in range(s):
-        state, h = _mlstm_step(state, qs[:, t], ks[:, t], vs[:, t],
-                               i_pre[:, t], f_pre[:, t])
-        hs.append(h)
+    state, h = run_steps(_mlstm_step, state, (qs, ks, vs, i_pre, f_pre), s)
     state = (state[0].to(torch.float32), state[1].to(torch.float32),
              state[2])
-    h = torch.stack(hs, 1).reshape(b, s, d)
+    h = h.reshape(b, s, d)
     # jnp's ``repeat`` repeats each head's gate hd times in place: the
     # interleaving repeat, not Tensor.repeat's tiling
     h = h * torch.sigmoid(o_pre).repeat_interleave(hd, dim=-1)
-    y = dense(ctx, "wo", h.to(x.dtype), cfg)
+    y = dense(ctx, "wo", h.to(x.dtype), cfg, axes=_OUT, shape=(d, d))
     return y, state
 
 
@@ -104,7 +120,7 @@ def mlstm_cell(ctx: Ctx, x: torch.Tensor, cfg: ArchConfig, state=None):
 # sLSTM: scalar memory per unit, exponential gating, block-diag recurrence
 # ---------------------------------------------------------------------------
 
-def _slstm_step(state, z_x, i_x, f_x, o_x, r):
+def _slstm_step(state, z_x, i_x, f_x, o_x, *, r):
     """state: (c, n, m, h) each (B, H, hd); the input pre-activations of
     one step; ``r`` the f32 recurrent weights (H, hd, hd) by gate."""
     c, n, m, h_prev = state
@@ -129,11 +145,10 @@ def slstm_cell(ctx: Ctx, x: torch.Tensor, cfg: ArchConfig, state=None):
     b, s, d = x.shape
     nh = cfg.n_heads
     hd = d // nh
-    zx = dense(ctx, "wz", x, cfg)
-    ix = dense(ctx, "wi", x, cfg)
-    fx = dense(ctx, "wf", x, cfg)
-    ox = dense(ctx, "wo_in", x, cfg)
-    r = {nm: ctx.param(f"r_{nm}") for nm in ("z", "i", "f", "o")}
+    zx, ix, fx, ox = (_proj(ctx, x, cfg, n, d)
+                      for n in ("wz", "wi", "wf", "wo_in"))
+    r = {nm: whole_param(ctx.param(f"r_{nm}"), ("heads", None, None),
+                         (nh, hd, hd)) for nm in ("z", "i", "f", "o")}
 
     def heads(t):
         return t.reshape(b, s, nh, hd).to(torch.float32)
@@ -142,14 +157,10 @@ def slstm_cell(ctx: Ctx, x: torch.Tensor, cfg: ArchConfig, state=None):
         z0 = torch.zeros((b, nh, hd), dtype=torch.float32, device=x.device)
         state = (z0, z0, torch.full((b, nh, hd), -math.inf,
                                     dtype=torch.float32, device=x.device), z0)
-    zs, is_, fs, os_ = heads(zx), heads(ix), heads(fx), heads(ox)
-    hs = []
-    for t in range(s):
-        state, h = _slstm_step(state, zs[:, t], is_[:, t], fs[:, t],
-                               os_[:, t], r)
-        hs.append(h)
-    h = torch.stack(hs, 1).reshape(b, s, d).to(x.dtype)
-    y = dense(ctx, "w_down", h, cfg)
+    state, h = run_steps(functools.partial(_slstm_step, r=r), state,
+                         (heads(zx), heads(ix), heads(fx), heads(ox)), s)
+    h = h.reshape(b, s, d).to(x.dtype)
+    y = dense(ctx, "w_down", h, cfg, axes=_OUT, shape=(d, d))
     return y, state
 
 
@@ -180,10 +191,6 @@ def _store(dst, src) -> None:
     """Write a layer's new state into its rows of the cache (views)."""
     for view, t in zip(dst, src):
         view.copy_(t)
-
-
-# the logical axes of the cells' projections (in: embed -> heads)
-_IN, _OUT = ("embed", "heads"), ("heads", "embed")
 
 
 class XLSTMModel:
@@ -266,7 +273,8 @@ class XLSTMModel:
                         segments=clip_segments(self.segments, i,
                                                i + n_m_here),
                         base=i - mi,
-                        cache=None if states is None else states["mlstm"])
+                        cache=None if states is None else states["mlstm"],
+                        remat=cfg.remat if states is None else "none")
                 mi += n_m_here
                 i += n_m_here
             if self.n_s and si < self.n_s and i < cfg.n_layers:

@@ -9,36 +9,44 @@ parameter set at every site but keeps its own KV cache per site
 (``attn_{site}``), a ring buffer of ``window`` cells when the window is
 shorter than the cache. The projections route through ``dense`` (the DAISM
 GEMM where the policy says so); the depthwise conv and the SSD scan (a
-Python loop over time, in f32) are plain torch ops. The windowed shared
+Python loop over time, in f32: ``roofline.flops.run_steps``) are plain
+torch ops. Under a sharder the shared block's heads follow
+``layers.self_attention`` and a Mamba block gathers what it needs whole
+(:func:`mamba_block`). The windowed shared
 attention never takes the flash kernel (``layers.attend``: a window is not
 flash-eligible).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.config import torch_dtype
+from repro_torch.parallel.sharding import current_sharder
 from repro_torch.policy import OpKind, plan_segments, site_scope
+from repro_torch.roofline.flops import run_steps
 from repro_torch.runtime.device import resolve_device
 
 from .common import ArchConfig
-from .layers import dense, embed, mlp, norm, self_attention, unembed
+from .layers import (dense, embed, local_part, mlp, norm, self_attention,
+                     unembed, whole_cols, whole_param)
 from .module import (Ctx, ParamSpec, axes_tree, init_params, normal_init,
                      ones_init, zeros_init)
 from .transformer import (attn_mats, block_specs, clip_segments, ffn_mats,
                           lm_specs, run_policy_segments)
 
 Params = Dict[str, object]
+_IN_PROJ = ("embed", "mlp")
 
 
 # ---------------------------------------------------------------------------
 # Mamba-2 block
 # ---------------------------------------------------------------------------
 
-def _ssd_step(S, decay_rate, x, dt, B_, C):
+def _ssd_step(S, x, dt, B_, C, *, decay_rate):
     """S (B, H, P, N); x (B, H, P), dt (B, H), B_ and C (B, N) of one time
     step; ``decay_rate`` = exp(a_log) (H,)."""
     a = torch.exp(-decay_rate[None, :] * dt)                  # (B, H) decay
@@ -62,18 +70,42 @@ def causal_depthwise_conv(xpad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.to(xpad.dtype)
 
 
+def _state_layout(cfg: ArchConfig):
+    """{leaf: (logical axes, shape, the dim split over model)} of a
+    block's decode state, its batch rows left out (``launch/steps.py``'s
+    cache table: ``conv`` over ``act_mlp``, ``ssm`` over ``act_heads``)."""
+    p = cfg.d_inner // cfg.ssm_heads
+    return {"conv": ((None, None, "act_mlp"),
+                     (1, cfg.conv_kernel - 1, cfg.d_inner), 2),
+            "ssm": ((None, "act_heads", None, None),
+                    (1, cfg.ssm_heads, p, cfg.ssm_state), 1)}
+
+
 def mamba_block(ctx: Ctx, cfg: ArchConfig, x, *, state: Optional[dict] = None):
     """x (B, S, d). ``state`` (decode): {'conv': (B, K-1, d_in), 'ssm': (B,
-    H, P, N)}, f32. Returns (x, the new state or None)."""
+    H, P, N)}, f32. Returns (x, the new state or None).
+
+    Under a sharder ``in_proj``'s output is gathered whole over ``model``
+    (a 16-way column cut gives ranks 0-7 only ``xs`` and 8-15 only ``z``),
+    the conv and the SSD run on every channel and head on every rank with
+    ``conv_w``, ``a_log`` and ``d_skip`` gathered whole; ``bc_proj``,
+    ``dt_proj`` and ``out_proj`` take this rank's part of their K
+    (row-parallel sums). ``state`` and the new state are then this rank's
+    parts, as the cache holds them."""
     b, s, d = x.shape
     d_in = cfg.d_inner
     nheads = cfg.ssm_heads
     p = d_in // nheads
     kconv = cfg.conv_kernel
+    sharded = current_sharder() is not None and state is not None
+    if sharded:  # the cache holds this rank's channels and heads
+        state = {k: whole_param(state[k], axes, shape)
+                 for k, (axes, shape, _) in _state_layout(cfg).items()}
 
     with ctx.scope("mamba"):
         y_in = norm(ctx, "ln", x, cfg)
-        xz = dense(ctx, "in_proj", y_in, cfg)
+        xz = whole_cols(dense(ctx, "in_proj", y_in, cfg, axes=_IN_PROJ,
+                              shape=(d, 2 * d_in)), _IN_PROJ, (d, 2 * d_in))
         xs, z = torch.chunk(xz, 2, dim=-1)
 
         new_conv_state = None
@@ -82,33 +114,39 @@ def mamba_block(ctx: Ctx, cfg: ArchConfig, x, *, state: Optional[dict] = None):
         else:
             xpad = torch.cat([state["conv"].to(xs.dtype), xs], dim=1)
             new_conv_state = xpad[:, -(kconv - 1):, :]
-        xc = F.silu(causal_depthwise_conv(xpad, ctx.param("conv_w")))
+        conv_w = whole_param(ctx.param("conv_w"), ("conv", None, "mlp"),
+                             (kconv, 1, d_in))
+        xc = F.silu(causal_depthwise_conv(xpad, conv_w))
 
         # SSD projections
-        bc = dense(ctx, "bc_proj", xc, cfg)
+        bc = dense(ctx, "bc_proj", xc, cfg, axes=("mlp", "ssm"),
+                   shape=(d_in, 2 * cfg.ssm_state))
         B_, C_ = torch.chunk(bc.to(torch.float32), 2, dim=-1)   # (B, S, N)
-        dt = dense(ctx, "dt_proj", xc, cfg)
+        dt = dense(ctx, "dt_proj", xc, cfg, axes=("mlp", "heads"),
+                   shape=(d_in, nheads))
         dt = F.softplus(dt.to(torch.float32) + 1.0)             # (B, S, H)
-        decay_rate = torch.exp(ctx.param("a_log"))
-        d_skip = ctx.param("d_skip")
+        decay_rate = torch.exp(whole_param(ctx.param("a_log"), ("heads",),
+                                           (nheads,)))
+        d_skip = whole_param(ctx.param("d_skip"), ("heads",), (nheads,))
 
         xh = xc.reshape(b, s, nheads, p).to(torch.float32)
         S = (torch.zeros((b, nheads, p, cfg.ssm_state), dtype=torch.float32,
                          device=x.device) if state is None else state["ssm"])
-        ys = []
-        for t in range(s):
-            S, y = _ssd_step(S, decay_rate, xh[:, t], dt[:, t], B_[:, t],
-                             C_[:, t])
-            ys.append(y)
-        y = torch.stack(ys, 1)                                  # (B,S,H,P)
+        S, y = run_steps(functools.partial(_ssd_step, decay_rate=decay_rate),
+                         S, (xh, dt, B_, C_), s)               # (B,S,H,P)
         y = y + xh * d_skip[None, None, :, None]
         y = y.reshape(b, s, d_in).to(x.dtype)
         y = y * F.silu(z)
-        out = dense(ctx, "out_proj", y, cfg)
+        out = dense(ctx, "out_proj", y, cfg, axes=("mlp", "embed"),
+                    shape=(d_in, d))
 
     new_state = None
     if state is not None:
         new_state = {"conv": new_conv_state.to(torch.float32), "ssm": S}
+        if sharded:
+            new_state = {k: local_part(new_state[k], axes, shape, dim)
+                         for k, (axes, shape, dim)
+                         in _state_layout(cfg).items()}
     return x + out, new_state
 
 
@@ -157,7 +195,7 @@ class ZambaModel:
         d, d_in, h = cfg.d_model, cfg.d_inner, cfg.ssm_heads
         specs = lm_specs(cfg)
         block_specs(specs, cfg, "mamba_blocks", L, "mamba", "ln",
-                    [("in_proj", (d, 2 * d_in), pd, False, ("embed", "mlp")),
+                    [("in_proj", (d, 2 * d_in), pd, False, _IN_PROJ),
                      ("bc_proj", (d_in, 2 * cfg.ssm_state), pd, False,
                       ("mlp", "ssm")),
                      ("dt_proj", (d_in, h), pd, False, ("mlp", "heads")),
@@ -216,7 +254,8 @@ class ZambaModel:
         for lo, hi, site in self._groups():
             x, _ = run_policy_segments(
                 mamba_fn, params["mamba_blocks"], x,
-                segments=clip_segments(self.segments, lo, hi), cache=states)
+                segments=clip_segments(self.segments, lo, hi), cache=states,
+                remat=cfg.remat if cache is None else "none")
             if site is None:
                 continue
             ac = (None if cache is None

@@ -16,6 +16,18 @@ identity, as the reference's is outside a mesh.
 A :class:`Sharder` is built over a ``torch.distributed`` ``DeviceMesh``
 (``launch/mesh.py::make_mesh``) or over a plain ``{axis: size}`` dict, so
 that the specs can be computed, and tensors sliced, with no process group.
+On ``meta`` tensors (a shape-only trace, ``launch/dryrun.py``) a sizes-only
+sharder's collectives run too: a sum returns its input, a gather the
+concatenation of its input's copies, and no process group is called.
+
+Inside :func:`record_collectives` every group call is noted, sizes-only
+ones on ``meta`` as well, with its operation, bytes (an all-reduce's
+operand, an all-gather's result), group size and wire bytes under the
+reference's ring factors (``roofline/analysis.py::_wire_factor``). A run
+over a process group and a ``meta`` trace of the same step under a
+sizes-only sharder of the same sizes note the same calls. These notes take
+the place of the reference's ``collective_bytes_from_hlo``: the port has
+no HLO.
 
 The collectives are seen by autograd. Each call site names what lies
 downstream of it (``downstream=``), and that fixes the backward:
@@ -49,6 +61,9 @@ import torch
 AxisRule = Union[None, str, Tuple[str, ...]]
 # process-group calls made by Sharder.all_reduce / all_gather, by kind
 COLLECTIVES = {"all_reduce": 0, "all_gather": 0}
+# the open record_collectives() lists (module-wide: a backward may run on
+# another thread than the forward)
+_TALLIES: list = []
 # one entry per tensor dim, as the reference's PartitionSpec: None, a mesh
 # axis name, or a tuple of them; trailing None entries are trimmed
 Spec = Tuple[Union[None, str, Tuple[str, ...]], ...]
@@ -140,7 +155,8 @@ class Sharder:
 
     ``mesh`` is a ``DeviceMesh`` with named dims, or a ``{axis: size}``
     mapping (no process group: specs and slicing only; a collective over
-    an axis of size > 1 then raises).
+    an axis of size > 1 then raises, but on ``meta`` tensors, where it
+    returns the shape the group call would).
     """
 
     def __init__(self, mesh, rules: Dict[str, AxisRule]):
@@ -246,29 +262,40 @@ class Sharder:
         axes = spec_axes(entry)
         return bool(axes) and set(axes) <= set(self.batch_axes())
 
-    def _groups(self, axes):
+    def _groups(self, axes, meta: bool = False):
         """(axis, its process group) for each mesh axis of a spec entry. A
-        sizes-only mesh has no group; its axes of size 1 need none."""
+        sizes-only mesh has no group; its axes of size 1 need none, and on
+        ``meta`` tensors (``meta``) its larger axes yield None."""
         for a in spec_axes(axes):
-            if not (isinstance(self.mesh, Mapping) and self.size(a) == 1):
+            if not isinstance(self.mesh, Mapping):
                 yield a, self.group(a)
+            elif self.size(a) > 1:
+                yield a, None if meta else self.group(a)
 
     def _reduce(self, x: torch.Tensor, axes, op=None) -> torch.Tensor:
         import torch.distributed as dist
 
-        for _, group in self._groups(axes):
-            COLLECTIVES["all_reduce"] += 1
-            dist.all_reduce(x, op=op or dist.ReduceOp.SUM, group=group)
+        for a, group in self._groups(axes, x.device.type == "meta"):
+            _note("all-reduce", x, self.size(a))
+            if group is not None:
+                COLLECTIVES["all_reduce"] += 1
+                dist.all_reduce(x, op=op or dist.ReduceOp.SUM, group=group)
         return x
 
     def _gather(self, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
         import torch.distributed as dist
 
-        for a, group in reversed(list(self._groups(axes))):
-            COLLECTIVES["all_gather"] += 1
-            parts = [torch.empty_like(x) for _ in range(self.size(a))]
-            dist.all_gather(parts, x.contiguous(), group=group)
-            x = torch.cat(parts, dim=dim)
+        meta = x.device.type == "meta"
+        for a, group in reversed(list(self._groups(axes, meta))):
+            n = self.size(a)
+            if group is None:
+                x = torch.cat([x] * n, dim=dim)
+            else:
+                COLLECTIVES["all_gather"] += 1
+                parts = [torch.empty_like(x) for _ in range(n)]
+                dist.all_gather(parts, x.contiguous(), group=group)
+                x = torch.cat(parts, dim=dim)
+            _note("all-gather", x, n)
         return x
 
     def _slice(self, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
@@ -286,7 +313,8 @@ class Sharder:
         """Whether a collective over ``axes`` must be seen by autograd: it
         runs at least one group call and ``x`` takes a gradient."""
         return (torch.is_grad_enabled() and x.requires_grad
-                and any(True for _ in self._groups(axes)))
+                and any(True for _ in self._groups(
+                    axes, x.device.type == "meta")))
 
     def all_reduce(self, x: torch.Tensor, axes, op=None, *,
                    downstream: str) -> torch.Tensor:
@@ -326,6 +354,40 @@ class Sharder:
         if not self._traced(x, axes):
             return x
         return _SumGrad.apply(x, self, axes)
+
+
+@dataclasses.dataclass(frozen=True)
+class CollectiveCall:
+    """One group call: the reference's op name (``all-reduce``,
+    ``all-gather``), its bytes (the reduce's operand, the gather's
+    result), the group size and the bytes each rank puts on the wire."""
+    op: str
+    bytes: int
+    group: int
+    wire_bytes: float
+
+
+def _note(op: str, x: torch.Tensor, n: int) -> None:
+    if not _TALLIES:
+        return
+    from repro_torch.roofline.analysis import _wire_factor
+
+    b = x.numel() * x.element_size()
+    call = CollectiveCall(op, b, n, b * _wire_factor(op, n))
+    for tally in _TALLIES:
+        tally.append(call)
+
+
+@contextlib.contextmanager
+def record_collectives():
+    """Collect a :class:`CollectiveCall` for every group call made inside
+    the block (on any thread), in call order, into the yielded list."""
+    calls: list = []
+    _TALLIES.append(calls)
+    try:
+        yield calls
+    finally:
+        _TALLIES.remove(calls)
 
 
 _DOWNSTREAM = ("same", "per_rank")

@@ -66,6 +66,26 @@ def site_scope(name: str, *, repeat: int = 1) -> Iterator[None]:
         st.pop()
 
 
+def scope_snapshot() -> Tuple[Tuple[str, int], ...]:
+    """The whole scope stack, names and repeats, to re-enter it later
+    (:func:`use_scope`: an activation-checkpoint recompute runs in the
+    backward, outside the scopes of its forward)."""
+    return tuple(_stack())
+
+
+@contextlib.contextmanager
+def use_scope(snapshot: Tuple[Tuple[str, int], ...]) -> Iterator[None]:
+    """Run the block with the scope stack set to ``snapshot``; the stack
+    object itself is put back after it (the enclosing :func:`site_scope`
+    blocks pop from that object)."""
+    prev = _stack()
+    _LOCAL.stack = list(snapshot)
+    try:
+        yield
+    finally:
+        _LOCAL.stack = prev
+
+
 def current_path(leaf: str = "") -> str:
     """The site path at this point of the trace, optionally with a leaf name."""
     parts = [name for name, _ in _stack()] + ([str(leaf)] if leaf else [])

@@ -12,10 +12,12 @@ import torch
 def resolve_device(device) -> torch.device:
     """``device`` as a ``torch.device`` with its index filled in (``"cuda"``
     -> ``cuda:<current>``, the device tensors report); raises if it names
-    CUDA and no card is available."""
+    CUDA and no card is available. ``meta`` (shapes only, nothing runs)
+    is what the dry-run asks for by name."""
     dev = torch.device(device)
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {str(dev)!r} (cuda or cpu)")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {str(dev)!r} (cuda, cpu, or "
+                         "meta for a shape-only trace)")
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(

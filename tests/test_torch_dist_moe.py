@@ -1,5 +1,5 @@
 """Port parity: expert-parallel MoE training over meshes, the gradient of
-every kind of sharded call site, and the families a mesh refuses.
+every kind of sharded call site, and the VLM and Whisper over a mesh.
 
 * Qwen3-MoE and DBRX (f32 smoke, 2 layers, vocab 128; B = 8, S = 16, 3
   steps, warmup 1) train through EP on 1 x 1, 2 x 2 and 4 x 2 ``data`` x
@@ -36,10 +36,8 @@ every kind of sharded call site, and the families a mesh refuses.
   capacity that drops nothing) on 2 and 4 ranks, against the same function
   run whole in this process, f32, within 1e-6 of the largest gradient.
 * the other families: Llama-3.2-Vision and Whisper (``EncDecLM``) train
-  over 2 x 2 against the reference on the same mesh; xLSTM and Zamba,
-  whose layers take no shards yet, are refused over a mesh larger than
-  1 x 1 (ROADMAP C6), naming the family; over 1 x 1 they train as before
-  (the zoo train tests).
+  over 2 x 2 against the reference on the same mesh (xLSTM and Zamba:
+  ``tests/test_torch_dist_families.py``).
 """
 import pytest
 
@@ -49,7 +47,6 @@ import numpy as np  # noqa: E402
 
 from repro_torch.configs import get_config as tget  # noqa: E402
 from repro_torch.launch.mesh import run_ranks  # noqa: E402
-from repro_torch.launch.steps import build_artifacts  # noqa: E402
 from repro_torch.models.layers import (FFN_AXES, embed, mlp,  # noqa: E402
                                        sharded_dot, unembed)
 from repro_torch.models.module import Ctx  # noqa: E402
@@ -256,16 +253,3 @@ def test_prefill_and_decode_2x2_match_the_reference(runs, arch):
         assert got.shape == want.shape, (key, got.shape, want.shape)
         err = np.abs(got - want).max()
         assert err <= 1e-5 * np.abs(want).max(), (key, err)
-
-
-@pytest.mark.parametrize("arch", ["xlstm_1_3b", "zamba2_1_2b"])
-def test_families_without_sharded_layers_are_refused_over_a_mesh(arch):
-    """Over 2 x 2 (a sizes-only mesh: the refusal comes before any
-    process group is used) ``build_artifacts`` raises, naming the family
-    and ROADMAP C6; over 1 x 1 it builds."""
-    cfg = tget(arch).smoke()
-    with pytest.raises(NotImplementedError,
-                       match=f"family '{cfg.family}'.*section C, item 6"):
-        build_artifacts(cfg, {"data": 2, "model": 2}, device="cpu")
-    art = build_artifacts(cfg, {"data": 1, "model": 1}, device="cpu")
-    assert art.sharder.size("data") == 1

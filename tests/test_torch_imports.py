@@ -54,7 +54,7 @@ def test_every_port_module_imports_without_jax():
             "repro_torch.configs.whisper_large_v3",
             "repro_torch.configs.xlstm_1_3b",
             "repro_torch.configs.zamba2_1_2b",
-            *MULTI_DEVICE} <= set(mods)
+            *MULTI_DEVICE, *ROOFLINE} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
@@ -79,7 +79,14 @@ MULTI_DEVICE = ("repro_torch.parallel", "repro_torch.parallel.sharding",
                 "repro_torch.launch.train")
 
 
-@pytest.mark.parametrize("mod", MULTI_DEVICE)
+# the roofline and the dry-run (counting on meta, the H100's terms, the
+# tables, the CLI; unroll is the reference's copy for the API)
+ROOFLINE = ("repro_torch.roofline", "repro_torch.roofline.flops",
+            "repro_torch.roofline.analysis", "repro_torch.roofline.report",
+            "repro_torch.launch.dryrun", "repro_torch.parallel.unroll")
+
+
+@pytest.mark.parametrize("mod", MULTI_DEVICE + ROOFLINE)
 def test_multi_device_module_imports_without_jax(mod):
     """Each multi-device module alone, in a fresh process: no jax, no JAX
     package, and no process group brought up by importing it."""

@@ -409,3 +409,34 @@ def four_ranks(rank, restore_args, pipe, grad_args, moe_args):
         pipe=pipeline_grads(rank, pipe) if pipe else None,
         grads=grad_sites(rank, *grad_args) if grad_args else None,
         moe=train_runs(rank, *moe_args) if moe_args else None)
+
+
+def tally_step(rank, arch, cfg_kw, batch, mesh_shape):
+    """One ``train_step`` of a smoke config over a (data, model) mesh from
+    ``init_params(0)``, its group calls noted
+    (``parallel.sharding.record_collectives``); rank 0 returns them as
+    (op, bytes, group, wire bytes) tuples."""
+    import dataclasses
+
+    from repro_torch.data import shard_batch
+    from repro_torch.launch.steps import build_artifacts
+    from repro_torch.parallel.sharding import record_collectives
+
+    mesh = make_mesh(mesh_shape, ("data", "model"))
+    art = build_artifacts(get_config(arch).smoke(**cfg_kw), mesh,
+                          device="cpu")
+    params = art.init_params(0)
+    opt = art.init_opt(params)
+    rows = shard_batch(batch, art.batch_sharding(batch), device="cpu")
+    with record_collectives() as calls:
+        art.train_step(params, opt, rows)
+    return [dataclasses.astuple(c) for c in calls] if rank == 0 else None
+
+
+def families(rank, runs, init_dir, mesh_shape, tally=None):
+    """:func:`train_runs` on one mesh and, with ``tally`` (the arguments
+    of :func:`tally_step` after the rank), the noted train step; rank 0
+    returns both."""
+    out = train_runs(rank, runs, init_dir, mesh_shape)
+    calls = tally_step(rank, *tally) if tally else None
+    return (out, calls) if rank == 0 else None
