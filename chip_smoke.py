@@ -19,7 +19,13 @@ and prints the kernels' times beside their bounds. Phases:
 2. build    — nvcc of every kernel source, all started together, timed,
               with the -Xptxas -v lines; where cuobjdump exists, the HGMMA
               (wgmma), HMMA and UTMALDG (TMA) instructions of the EXACT
-              kernels' SASS, which must hold HGMMA;
+              kernels' SASS, which must hold HGMMA; the integer flash
+              kernel (flash_fwd_int) at each of its 42 instantiations:
+              ptxas registers and spills, the CUDA attributes' registers
+              and local bytes, blocks an SM at 8, 4 and 2 warps a block
+              (at least 16 warps an SM, or it fails), and the SASS of its
+              product loops (PC3_TR, FLA at D = 64, 256): instructions a
+              product besides the adds, loads and branches;
 3. kernels  — daism_matmul: (a) K = 1 outer products over every pair of
               normalized bf16 mantissas with mixed signs and exponents
               (underflow and overflow included): bit-identical to the plain
@@ -40,7 +46,12 @@ and prints the kernels' times beside their bounds. Phases:
               (2**-7 |plain| + 2**-16 max|v|, FLASH_EXACT_ULP),
               approximate within 2**-6 |plain| + 1e-3 (see
               FLASH_APPROX_TOL); bf16 exact runs the tensor-core kernel,
-              D = 40 covers its zero-padded head dim; (e) causally masked
+              D = 40 covers its zero-padded head dim; the integer kernel
+              (the approximate variants, f32 exact) at D in {1, 40, 64, 96,
+              128, 192, 256} with kv_len < Skv and Sq != Skv, causal and
+              not, its three block sizes bit for bit, and the kernels'
+              multiply-accumulate (approx_mac_lean) equal to acc +
+              approx_product on all 2**32 bf16 pairs of every variant; (e) causally masked
               KV tiles are skipped (poisoned keys past them change nothing);
               (f) one KV tile against the reference's semantics oracle
               (DAISM products of kernels/ref.py and a plain softmax), 2e-2
@@ -142,8 +153,9 @@ and prints the kernels' times beside their bounds. Phases:
               8's rule); (g) flash at D = 192 and 256: all seven variants,
               causal and not, ragged, within the phase-3 bounds, the
               controls breaking them at both dims, and timings at Gemma's
-              and Nemotron's heads (S = 2048) beside the bound and SDPA,
-              with the large-D kernels' ptxas registers and spills.
+              and Nemotron's heads (S = 2048) beside the bound, SDPA and
+              the approximate kernel's time before its redesign, with the
+              large-D kernels' ptxas registers and spills.
               Every model's GEMM launches equal its sites, flash's its
               layers.
 13. zoo rest — Whisper-large-v3, xLSTM-1.3B and Zamba2-1.2B at published
@@ -153,8 +165,10 @@ and prints the kernels' times beside their bounds. Phases:
               encoder self, decoder self and cross), exact flash against
               jnp attention as there, encode + 8 decode_steps against the
               forward, flash alone at (1500, 1500) and (448, 1500)
-              non-causal against the plain version with the controls,
-              beside the bound and SDPA; the GEMM kernel at every new
+              non-causal and the decoder's (448, 448) causal against the
+              plain version with the controls, beside the bound, SDPA and
+              the approximate kernel's time before its redesign; the GEMM
+              kernel at every new
               shape of the three models (Whisper's M = 1500 and S = 448
               with the ragged N = 51866 head, xLSTM's N = 12, Zamba's
               Mamba and shared-block GEMMs) against the plain version; (b)
@@ -269,21 +283,32 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM peaks (NVIDIA data sheet, as tabulated in the repo's measurement
 # notes): HBM 3.35 TB/s; bf16 tensor cores 989 TFLOP/s (the least time an
-# exact bf16 GEMM could take). The INT32 rate is derived from the same
-# sheet's FP32 rate (67 TFLOP/s = 132 SMs x 128 FP32 lanes x 2 x 1.98 GHz):
-# each SM has 64 INT32 lanes, so 132 x 64 x 1.98e9 integer ops/s.
+# exact bf16 GEMM could take). The approximate product runs on neither: it
+# is integer logic, shifts, compares and IMADs with an f32 add, and an SM
+# issues at most 4 warp instructions a clock, 128 lane operations, of any
+# such kind (IMAD and FADD on the FMA pipe, the rest on the ALU pipe at
+# half that rate). That is the sheet's FP32 rate counted in instructions
+# (67 TFLOP/s = 132 SMs x 128 lanes x 2 flops an FMA x 1.98 GHz), so
+# 132 x 128 x 1.98e9 operations a second.
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
+LANE_OPS_PER_S = 132 * 128 * 1.98e9
 
-# Integer operations per approximate MAC, counted from the chain in
-# src/repro_torch/csrc/approx_product.cuh with operand-only terms hoisted:
-# the line selects (one AND/OR each: 8 for FLA and HLA, 6 for PC2, 5 for
-# PC3), HLA's add, the head line's multiply (PC2/PC3), the truncation mask
-# (_TR), and 13 for normalization, exponent add, sign and f32 composition.
-OPS_PER_MAC = {"fla": 8 + 13, "hla": 8 + 1 + 13, "pc2": 1 + 6 + 13,
-               "pc3": 1 + 5 + 13, "pc2_tr": 1 + 6 + 1 + 13,
-               "pc3_tr": 1 + 5 + 1 + 13}
+# Operations per approximate MAC of approx_mac_lean
+# (src/repro_torch/csrc/approx_product.cuh), the multiply-accumulate every
+# kernel runs, with the multiplier-only terms hoisted (each line's bit, the
+# shifted head weight) and the f32 add into the accumulator included: a
+# multiply per line and per head line (8 FLA/HLA, 7 PC2, 6 PC3, 5 PC2_TR,
+# 4 PC3_TR, the last two with the line-1 constant as one more OR input),
+# ORs of three (FLA 4, HLA 2 + 2 and their add, PC2 3, PC3 3, PC2_TR 3,
+# PC3_TR 2), and the f32 composition and add: FLA's top bit is always 0,
+# so 8 (shift, exponent add, exponent shift, OR, min, sign, compare, the
+# predicated add); the others 10 (the top bit, and the shift as two
+# multiplies), the truncated ones 11 (the truncation mask). Phase 2 holds
+# each count under the compiled loop's instructions a product.
+OPS_PER_MAC = {"fla": 8 + 4 + 8, "hla": 8 + 5 + 10, "pc2": 7 + 3 + 10,
+               "pc3": 6 + 3 + 10, "pc2_tr": 5 + 3 + 11,
+               "pc3_tr": 4 + 2 + 11}
 
 KN_SHAPES = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048),
              (2048, 32000)]
@@ -351,6 +376,28 @@ FLASH_APPROX_TOL = (1e-3, 2.0**-6)
 # one KV tile against the semantics oracle (another arithmetic for the
 # softmax and the divide): the JAX suite's single-tile bound
 FLASH_ORACLE_ATOL = 2e-2
+
+# the integer flash kernel (flash_fwd_int): phase 3 (d) holds it against the
+# plain version at every head dim class with ragged kv_len and Sq != Skv,
+# (BH, Sq, Skv, kv_len), causal and not, and its three block sizes against
+# each other bit for bit
+FLASH_INT_DIMS = (1, 40, 64, 96, 128, 192, 256)
+FLASH_INT_RAGGED = (4, 100, 256, 200)
+# its times in PERF.md's kernel table before the redesign (the kernel
+# flash_fwd; NVIDIA H100 80GB HBM3, 700.00 W; earlier runs of this script),
+# by (shape label, variant); the decoder's self attention was not timed
+FLASH_INT_EARLIER_MS = {
+    ("tinyllama", "fla"): 16.9389, ("tinyllama", "hla"): 16.8174,
+    ("tinyllama", "pc2"): 15.7049, ("tinyllama", "pc3"): 14.5823,
+    ("tinyllama", "pc2_tr"): 16.2569, ("tinyllama", "pc3_tr"): 15.3193,
+    ("gemma_2b", "pc3_tr"): 21.3623, ("nemotron_4_340b", "pc3_tr"): 119.8136,
+    ("encoder self", "pc3_tr"): 9.6431, ("decoder cross", "pc3_tr"): 4.7947}
+
+
+def _earlier(label, variant):
+    ms = FLASH_INT_EARLIER_MS.get((label, variant))
+    return f"{ms:.4f} ms" if ms is not None else "not timed"
+
 
 PREFILL_SEQ = 2048   # TinyLlama's published context
 PREFILL_POLICIES = (
@@ -473,9 +520,11 @@ WHISPER_SEQ, WHISPER_STEPS = 448, 8
 WHISPER_POLICIES = tuple(
     (label, spec.replace("*/attn/kernel=", "*/kernel="))
     for label, spec in PREFILL_POLICIES)
-# flash alone at Whisper's two shapes (B, Sq, Skv, H, KH, D), non-causal
-WHISPER_FLASH = (("encoder self", (1, 1500, 1500, 20, 20, 64)),
-                 ("decoder cross", (1, 448, 1500, 20, 20, 64)))
+# flash alone at Whisper's shapes (B, Sq, Skv, H, KH, D): the encoder's and
+# the cross attention non-causal, the decoder's self attention causal
+WHISPER_FLASH = (("encoder self", (1, 1500, 1500, 20, 20, 64), False),
+                 ("decoder cross", (1, 448, 1500, 20, 20, 64), False),
+                 ("decoder self", (1, 448, 448, 20, 20, 64), True))
 # the GEMM kernel at phase 13's new shapes (label, M, K, N), PC3_TR: the
 # Whisper encoder's and the cross K/V's M = 1500, its decoder's at S = 448
 # (the head's N = 51866 ends in a ragged tile), xLSTM's projections and gate
@@ -674,7 +723,7 @@ def bound(variant: str, m: int, k: int, n: int):
         op_s = ops / BF16_TENSOR_FLOPS
     else:
         ops = OPS_PER_MAC[variant] * m * k * n
-        op_s = ops / INT32_OPS_PER_S
+        op_s = ops / LANE_OPS_PER_S
     byte_s = nbytes / HBM_BYTES_PER_S
     if op_s >= byte_s:
         return op_s * 1e3, "operations", ops
@@ -696,7 +745,7 @@ def flash_bound(variant: str, b: int, s: int, h: int, kh: int, d: int,
         op_s = ops / BF16_TENSOR_FLOPS
     else:
         ops = OPS_PER_MAC[variant] * 2 * pairs * d
-        op_s = ops / INT32_OPS_PER_S
+        op_s = ops / LANE_OPS_PER_S
     byte_s = nbytes / HBM_BYTES_PER_S
     if op_s >= byte_s:
         return op_s * 1e3, "operations", ops
@@ -706,6 +755,21 @@ def flash_bound(variant: str, b: int, s: int, h: int, kh: int, d: int,
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
+
+def _bhsd_at_block_size(q, k, v, causal, variant, warps):
+    """flash_attention_bhsd_kernel's launch with the integer kernel's block
+    size forced to ``warps`` (the wrapper's private override): the bits must
+    not depend on it."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, sq, h, d = q.shape
+    out = q.new_empty(q.shape)
+    q_st, k_st, v_st, o_st = (tuple(t.stride()[:3]) for t in (q, k, v, out))
+    return fa._launch_kernel(
+        q, k, v, b=b, h=h, kh=k.shape[2], sq=sq, skv=k.shape[1], d=d,
+        kv_len=k.shape[1], causal=causal, variant=variant, q_st=q_st,
+        k_st=k_st, v_st=v_st, out=out, o_st=o_st, warps=warps)
+
 
 def outer_product_operands(gen, device):
     """(M, 1) and (1, N) bf16 operands covering all 128 normalized mantissas
@@ -959,8 +1023,48 @@ def check_flash(device):
         torch.cuda.synchronize()
         _flash_held(got, ref, None, f"f32 causal={causal}", errs)
         n += 1
-    log(f"  (d) flash_attention: {n} cases (7 variants x D in 16..128 and "
-        f"40, causal and not, GQA / MHA / MQA, ragged, f32) within the "
+    # the integer kernel (approximate variants, f32 exact) at every head-dim
+    # class, kv_len < Skv and Sq != Skv; its block sizes bit for bit
+    bh, sq, skv, kv_len = FLASH_INT_RAGGED
+    for d in FLASH_INT_DIMS:
+        for dtype, cases in ((torch.bfloat16, variants[1:]),
+                             (torch.float32, [None])):
+            q, k, v = (torch.randn(sh, generator=gen, device=device).to(dtype)
+                       for sh in ((bh, sq, d), (bh, skv, d), (bh, skv, d)))
+            for causal in (True, False):
+                for var in cases:
+                    got = fa.flash_attention_kernel(q, k, v, causal=causal,
+                                                    kv_len=kv_len, variant=var)
+                    ref = fa.flash_attention_plain(q, k, v, causal=causal,
+                                                   kv_len=kv_len, block_q=sq,
+                                                   variant=var)
+                    torch.cuda.synchronize()
+                    _flash_held(got, ref, var, f"int D={d} {FLASH_INT_RAGGED} "
+                                f"causal={causal} {var or 'f32 exact'}", errs)
+                    n += 1
+        q, k, v = (t.transpose(0, 1)[None] for t in (q, k, v))
+        for causal in (True, False):
+            qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+            outs = [_bhsd_at_block_size(qb, kb, vb, causal, Variant.PC3_TR, w)
+                    for w in fa.INT_WARPS]
+            torch.cuda.synchronize()
+            if not all(torch.equal(o.view(torch.int16), outs[0].view(
+                    torch.int16)) for o in outs[1:]):
+                raise SystemExit(f"flash_fwd_int D={d} causal={causal}: block "
+                                 f"sizes {fa.INT_WARPS} differ")
+    for var in variants[1:]:
+        bad = fa.lean_product_mismatches(var, device)
+        if bad:
+            raise SystemExit(f"approx_mac_lean {var.value}: {bad} of "
+                             "2**32 bf16 pairs differ from acc + "
+                             "approx_product")
+    log(f"  (d) flash_fwd_int at D in {FLASH_INT_DIMS}, (BH, Sq, Skv, kv_len) "
+        f"= {FLASH_INT_RAGGED}, causal and not, 6 variants and f32 exact "
+        f"within the bounds; blocks of {'/'.join(map(str, fa.INT_WARPS))} "
+        "warps bit for bit (PC3_TR); its product equal to approx_product on "
+        "all 2**32 bf16 pairs, every variant")
+    log(f"  (d) flash_attention: {n} cases (7 variants x D in 1..256, "
+        f"causal and not, GQA / MHA / MQA, ragged, f32) within the "
         f"bounds; max "
         f"|kernel - plain| exact {errs['exact']:.4g} (bound "
         f"{FLASH_EXACT_TOL[0]:g} + {FLASH_EXACT_TOL[1]:g} |plain|; bf16 "
@@ -1602,7 +1706,9 @@ def measure_flash(device):
         log(f"  flash {name:7s} B={b} S={s} H={h} KH={kh} D={d} causal  "
             f"kernel {ms:9.4f} ms  plain {plain_ms:10.3f} ms  SDPA "
             f"{lib:>8s} ms  bound {b_ms:.4f} ms ({b_by}, {ops:.3e} ops)  "
-            f"{b_ms / ms * 100:5.1f}% of bound  |kernel - plain| {err:.4g}")
+            f"{b_ms / ms * 100:5.1f}% of bound  |kernel - plain| {err:.4g}"
+            + ("" if var is None else
+               f"  PERF.md before the redesign {_earlier('tinyllama', name)}"))
     log(f"  flash at {FLASH_TIMED}: all 7 variants within the bounds; max "
         f"|kernel - plain| exact {errs['exact']:.4g} (largest excess over "
         f"2**-16 max|v| + 2**-7 |plain| {errs['exact_over_1ulp']:.4g}), "
@@ -2615,8 +2721,8 @@ def expert_row(device, gen, tag, label, w, c, shared):
     nbytes = (2 * (c * k if shared else e * c * k) + 2 * e * k * n
               + 4 * e * c * n)
     ops = OPS_PER_MAC["pc3_tr"] * e * c * k * n
-    b_ms = max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3
-    b_by = ("operations" if ops / INT32_OPS_PER_S
+    b_ms = max(nbytes / HBM_BYTES_PER_S, ops / LANE_OPS_PER_S) * 1e3
+    b_by = ("operations" if ops / LANE_OPS_PER_S
             >= nbytes / HBM_BYTES_PER_S else "bytes")
     plan = dm._plan(c, k, n, var, experts=e)
     path = "tile" if plan is None else f"splitk {plan}"
@@ -2816,9 +2922,10 @@ def zoo_flash(device, ptxas):
     from repro_torch.core.config import Variant
     from repro_torch.kernels import flash_attention as fa
 
-    marks = {"flash_fwd NC=12": "EtLi12EE", "flash_fwd NC=16": "EtLi16EE",
-             "flash_fwd f32 NC=12": "EfLi12EE",
-             "flash_fwd f32 NC=16": "EfLi16EE",
+    marks = {"flash_fwd_int D=192": "EtLi192EE",
+             "flash_fwd_int D=256": "EtLi256EE",
+             "flash_fwd_int f32 D=192": "EfLi192EE",
+             "flash_fwd_int f32 D=256": "EfLi256EE",
              "flash_fwd_tc KD=12": "flash_fwd_tcILi12EE",
              "flash_fwd_tc KD=16": "flash_fwd_tcILi16EE"}
     spills = ptxas_summary(ptxas, marks)
@@ -2887,7 +2994,9 @@ def zoo_flash(device, ptxas):
             log(f"  (g) flash {name:6s} {arch} B={b} S={s} H={h} KH={kh} "
                 f"D={d} causal: kernel {ms:9.4f} ms, plain {plain_ms:9.1f} ms "
                 f"({heads} of {h} heads), SDPA {lib} ms, bound {b_ms:.4f} ms "
-                f"({b_by}), {b_ms / ms * 100:5.1f}% of bound")
+                f"({b_by}), {b_ms / ms * 100:5.1f}% of bound"
+                + ("" if var is None else
+                   f", PERF.md before the redesign {_earlier(arch, name)}"))
         if arch == "gemma_2b":
             _flash_controls({"exact": outs["exact"], "fla": outs["fla"]},
                             plains["pc3_tr"], f"{arch} {shape}")
@@ -3062,7 +3171,7 @@ def whisper_flash(device):
     errs = {"exact": 0.0, "exact_over_1ulp": -1.0, "approx": 0.0,
             "approx_over_2ulp": -1.0}
     rows = []
-    for label, shape in WHISPER_FLASH:
+    for label, shape, causal in WHISPER_FLASH:
         b, sq, skv, h, kh, d = shape
         q, k, v = _bhsd_inputs(gen, device, *shape)
         qs, ks, vs = (t.repeat_interleave(h // t.shape[2], dim=2).transpose(
@@ -3071,11 +3180,11 @@ def whisper_flash(device):
         for name, var in (("exact", None), ("pc3_tr", Variant.PC3_TR),
                           ("fla", Variant.FLA)):
             ms, outs[name] = cuda_time_ms(lambda: fa.flash_attention_bhsd_kernel(
-                q, k, v, causal=False, variant=var), 3)
+                q, k, v, causal=causal, variant=var), 3)
             if name == "fla":
                 continue
             plain_ms, plains[name] = cuda_time_ms(
-                lambda: fa.flash_attention_bhsd_plain(q, k, v, causal=False,
+                lambda: fa.flash_attention_bhsd_plain(q, k, v, causal=causal,
                                                       variant=var),
                 1, warmup=0)
             _flash_held(outs[name], plains[name], var,
@@ -3083,17 +3192,20 @@ def whisper_flash(device):
             lib_ms = None
             if var is None:
                 lib_ms, _ = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-                    qs, ks, vs), 5)
+                    qs, ks, vs, is_causal=causal), 5)
             b_ms, b_by, ops = flash_bound(name, b, sq, h, kh, d, skv=skv,
-                                          causal=False)
+                                          causal=causal)
             rows.append(dict(site=label, variant=name, shape=list(shape),
-                             ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                             bound_ms=b_ms, bound_by=b_by))
+                             causal=causal, ms=ms, plain_ms=plain_ms,
+                             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
             lib = f"{lib_ms:.4f}" if lib_ms is not None else "-"
             log(f"  (a) flash {name:6s} whisper {label} B={b} Sq={sq} "
-                f"Skv={skv} H={h} D={d} non-causal: kernel {ms:9.4f} ms, "
-                f"plain {plain_ms:9.1f} ms, SDPA {lib} ms, bound "
-                f"{b_ms:.4f} ms ({b_by}), {b_ms / ms * 100:5.1f}% of bound")
+                f"Skv={skv} H={h} D={d} {'causal' if causal else 'non-causal'}"
+                f": kernel {ms:9.4f} ms, plain {plain_ms:9.1f} ms, SDPA {lib} "
+                f"ms, bound {b_ms:.4f} ms ({b_by}), {b_ms / ms * 100:5.1f}% of "
+                "bound" + ("" if var is None else
+                           f", PERF.md before the redesign "
+                           f"{_earlier(label, name)}"))
         _flash_controls({"exact": outs["exact"], "fla": outs["fla"]},
                         plains["pc3_tr"], f"whisper {label} {shape}", "(a)")
         del q, k, v, qs, ks, vs, outs, plains
@@ -4477,6 +4589,83 @@ def build_all():
     return built, buf.getvalue()
 
 
+def flash_int_report(lib: Path, ptxas: str):
+    """Phase 2: flash_fwd_int at every instantiation (7 variants x 6 padded
+    head dims): ptxas's registers and spill stores, the CUDA attributes'
+    registers and local bytes, and the blocks an SM holds at each block
+    size (cudaOccupancyMaxActiveBlocksPerMultiprocessor), which must come
+    to at least 16 warps; then, where cuobjdump exists, the SASS of the
+    PC3_TR and FLA product loops at D = 64 and 256 (the innermost loops
+    that read shared memory): instructions a product besides the adds,
+    loads and branches, and those on the FMA pipe (IMAD, FADD, FFMA, FMUL;
+    the adds included). Each loop must issue at least the operations that
+    OPS_PER_MAC counts a product (with its add), or the count is no bound.
+    Returns {variant: {dp: info}}."""
+    import torch
+
+    from repro_torch.core.config import Variant
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.daism_matmul import VARIANT_IDS
+
+    def mark(name, dp):
+        vid = VARIANT_IDS[Variant(name)]
+        return f"flash_fwd_intILi{vid}E{'f' if name == 'exact' else 't'}Li{dp}EE"
+
+    names = ["exact"] + [v.value for v in Variant if v is not Variant.EXACT]
+    marks = {(n, dp): mark(n, dp) for n in names for dp in fa.INT_HEAD_DIMS}
+    compiled = ptxas_summary(ptxas, marks)
+    out = {}
+    for n in names:
+        dtype = torch.float32 if n == "exact" else torch.bfloat16
+        cells = []
+        for dp in fa.INT_HEAD_DIMS:
+            info = {w: fa.int_info(None if n == "exact" else n, dtype, dp, w)
+                    for w in fa.INT_WARPS}
+            regs, spill, _ = compiled.get((n, dp), (None, None, None))
+            warps = {w: w * info[w]["blocks_per_sm"] for w in fa.INT_WARPS}
+            if min(warps.values()) < fa.INT_RESIDENT_WARPS:
+                raise SystemExit(f"flash_fwd_int {n} D={dp}: {warps} warps an "
+                                 f"SM by block size, under "
+                                 f"{fa.INT_RESIDENT_WARPS}")
+            out.setdefault(n, {})[dp] = dict(
+                ptxas_registers=regs, ptxas_spill_bytes=spill,
+                registers=info[8]["registers"],
+                local_bytes=info[8]["local_bytes"],
+                blocks_per_sm={w: info[w]["blocks_per_sm"]
+                               for w in fa.INT_WARPS},
+                smem_bytes={w: info[w]["smem_bytes"] for w in fa.INT_WARPS})
+            cells.append(f"D{dp} {regs if regs is not None else '-'} regs "
+                         f"{spill if spill is not None else '-'} B spilled "
+                         f"(attr {info[8]['registers']} / "
+                         f"{info[8]['local_bytes']} B), blocks " + "/".join(
+                             str(info[w]["blocks_per_sm"])
+                             for w in fa.INT_WARPS))
+        log(f"  flash_fwd_int {n:6s}: " + "; ".join(cells))
+    log(f"  flash_fwd_int: blocks an SM at {'/'.join(map(str, fa.INT_WARPS))} "
+        f"warps, at least {fa.INT_RESIDENT_WARPS} warps an SM everywhere"
+        + ("" if compiled else " (ptxas not printed: libraries already built)"))
+    for n in ("pc3_tr", "fla"):
+        for dp in (64, 256):
+            loops = sass_loops(lib, marks[(n, dp)])
+            if loops is None:
+                log("  no cuobjdump: SASS of flash_fwd_int not counted")
+                return out
+            rows = [r for rs in loops.values() for r in rs
+                    if r["lds"] and r["products"] >= 8]
+            log(f"  SASS of flash_fwd_int {n} D={dp}, product loops: " + "; ".join(
+                f"{r['products']} products in {r['instructions']} "
+                f"instructions ({r['lds']} LDS): {r['per_product']:.2f} "
+                f"a product, {r['fma_per_product']:.2f} on the FMA pipe "
+                "with the add" for r in rows)
+                + f"; counted {OPS_PER_MAC[n]} with the add")
+            if any(r["per_product"] + 1 < OPS_PER_MAC[n] for r in rows):
+                raise SystemExit(f"flash_fwd_int {n} D={dp}: a product loop "
+                                 f"issues fewer than the {OPS_PER_MAC[n]} "
+                                 "operations OPS_PER_MAC counts a product")
+            out[n][dp]["sass_per_product"] = [r["per_product"] for r in rows]
+    return out
+
+
 def ptxas_summary(text: str, marks):
     """{label: (registers, spill store bytes, static shared memory bytes)}
     over the ptxas entries whose mangled name holds ``marks[label]`` (the
@@ -4536,6 +4725,67 @@ def sass_counts(lib: Path, kernel: str):
     return counts
 
 
+def sass_loops(lib: Path, mark: str):
+    """{function: [loop, ...]} over the library's functions whose mangled
+    name holds ``mark``, by ``cuobjdump -sass``: every innermost loop (a
+    backward branch whose body holds no other) as a dict of its
+    instructions, its products (FADD: each approximate product ends in one
+    add into its accumulator; FFMA for f32 exact) and its shared-memory
+    loads, with ``per_product``: the instructions other than the adds,
+    loads, branches and barriers, a product. None where the toolkit has no
+    cuobjdump."""
+    import os
+    import re
+    import shutil
+
+    cuobjdump = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                     "bin", "cuobjdump")
+    tool = str(cuobjdump) if cuobjdump.is_file() else shutil.which("cuobjdump")
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    funcs, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            fn = fn if mark in fn else None
+            if fn:
+                funcs[fn] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if fn and m:
+            words = [w for w in m.group(2).split() if not w.startswith("@")]
+            if words:
+                funcs[fn].append((int(m.group(1), 16), words))
+    out = {}
+    for fn, ins in funcs.items():
+        loops = []
+        for addr, words in ins:
+            if words[0].split(".")[0] != "BRA":
+                continue
+            t = re.search(r"0x([0-9a-f]+)", " ".join(words[1:]))
+            if t and int(t.group(1), 16) <= addr:
+                loops.append((int(t.group(1), 16), addr))
+        inner = [(a, b) for a, b in loops
+                 if not any((c, d) != (a, b) and a <= c and d <= b
+                            for c, d in loops)]
+        rows = []
+        for a, b in inner:
+            ops = [w[0].split(".")[0] for at, w in ins if a <= at <= b]
+            prod = sum(o in ("FADD", "FFMA") for o in ops)
+            lds = sum(o == "LDS" for o in ops)
+            other = sum(o not in ("FADD", "FFMA", "LDS", "BRA", "BAR", "NOP",
+                                  "WARPSYNC", "BSYNC", "BSSY")
+                        for o in ops)
+            fma = sum(o in ("IMAD", "FFMA", "FADD", "FMUL") for o in ops)
+            rows.append(dict(instructions=len(ops), products=prod, lds=lds,
+                             per_product=other / prod if prod else None,
+                             fma_per_product=fma / prod if prod else None))
+        out[fn] = rows
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--layers", type=int, default=22,
@@ -4580,6 +4830,7 @@ def main(argv=None) -> int:
                                                 for op, n in c.items()))
         if not counts or not all(c["HGMMA"] for c in counts.values()):
             raise SystemExit("the EXACT kernels hold no HGMMA (wgmma)")
+    int_report = flash_int_report(built["flash_attention"][0], ptxas)
 
     log("== 3. kernels vs plain versions ==")
     max_err = check_kernel(device)
@@ -4755,6 +5006,8 @@ def main(argv=None) -> int:
                                for k, r in rfrec["families"].items())
         + "; (d) " + ", ".join(f"{k} {r['wall_s']:.1f} s"
                                for k, r in rfrec["dryrun"].items()))
+    from repro_torch.kernels import flash_attention as fa
+
     rep = next(r for r in rows if (r["variant"], r["m"], r["k"], r["n"])
                == REPRESENTATIVE)
     xrep = next(r for r in rows if (r["variant"], r["m"], r["k"], r["n"])
@@ -4813,7 +5066,17 @@ def main(argv=None) -> int:
         "shape": list(FLASH_TIMED),
         "approx": {k: frep["pc3_tr"][k] for k in
                    ("variant", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms")},
+                    "library_ms")}
+        | {"kernel": "flash_fwd_int",
+           "registers": int_report["pc3_tr"][64]["registers"],
+           "local_bytes": int_report["pc3_tr"][64]["local_bytes"],
+           "blocks_per_sm": int_report["pc3_tr"][64]["blocks_per_sm"],
+           "sass_per_product": int_report["pc3_tr"][64].get(
+               "sass_per_product")},
+        "int_kernels": {n: {dp: {k: r[k] for k in ("registers", "local_bytes",
+                                                   "blocks_per_sm")}
+                            for dp, r in row.items()}
+                        for n, row in int_report.items()},
         "large_d": zrec["flash"],
         "whisper": rrec["whisper_flash"],
     }]}

@@ -232,13 +232,16 @@ def check_tiling(graph: SiteGraph, *, device: str = "cuda",
 def check_attention(graph: SiteGraph) -> List[Finding]:
     """Flash-attention dispatch legality (TIL family, ATTN_QK sites only).
 
-    TIL004: the CUDA kernels tile 64 queries against key tiles of 128 (64
-    for the tensor-core kernel's head dims past 128), and the tensor-core
-    kernel (bf16 exact) zero-pads the head dim to its 16-column MMA steps —
-    ragged sequence lengths and head dims are masked or zero but wasted
-    work. TIL005: a site the kernel refuses, an approximate variant off
-    bfloat16 (the ``resolve_site`` error as a pre-run finding) or a head
-    dim past the kernels' largest.
+    TIL004: the CUDA kernels tile queries against key tiles of 128 — the
+    tensor-core kernel (bf16 exact) 64 queries (64 keys for its head dims
+    past 128), its head dim zero-padded to 16-column MMA steps; the integer
+    kernel (``flash_fwd_int``) 8, 16 or 32 queries as ``int_plan`` picks
+    for the site's B x H heads (its multiply count over one head's), its
+    head dim padded to 16, 32, 64, 128, 192 or 256 — ragged sequence
+    lengths and head dims are masked or zero but wasted work. TIL005: a
+    site the kernel refuses, an approximate variant off bfloat16 (the
+    ``resolve_site`` error as a pre-run finding) or a head dim past the
+    kernels' largest.
     """
     from repro_torch.kernels import flash_attention as fa
 
@@ -248,8 +251,9 @@ def check_attention(graph: SiteGraph) -> List[Finding]:
             continue
         sq, d, skv = s.dims
         variant = None if s.config.exact else s.config.variant
+        bh = max(1, s.macs // (s.repeat * 2 * sq * skv * d))
         try:
-            bq, bk, dp = fa.kernel_tiles(d, s.dtype, variant)
+            bq, bk, dp = fa.kernel_tiles(d, s.dtype, variant, bh=bh, sq=sq)
         except ValueError as e:
             hint = ("run the site exact (keep ':flash', drop the variant) or "
                     "switch the compute dtype" if variant is not None
@@ -263,12 +267,14 @@ def check_attention(graph: SiteGraph) -> List[Finding]:
                   (("sq", sq, bq), ("skv", skv, bk)) if dim % t]
         if dp != d:
             ragged.append(f"head_dim: {d} -> {dp}")
+        tensor_cores = variant is None and s.dtype == "bfloat16"
         if ragged:
             findings.append(Finding(
                 "TIL004", "warning", "tiling",
                 f"flash-attention tiles (bq={bq}, bk={bk}"
-                + (f", head dim in steps of {fa.TC_HEAD_STEP}" if dp != d
-                   else "")
+                + ("" if dp == d else
+                   f", head dim in steps of {fa.TC_HEAD_STEP}" if tensor_cores
+                   else f", head dim padded to {dp}")
                 + f") pad this site: {', '.join(ragged)} — masked or zero "
                 "but wasted work on every padded tile",
                 site=s.path))

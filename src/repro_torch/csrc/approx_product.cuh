@@ -152,11 +152,90 @@ __device__ __forceinline__ float compose_product(int prod, int exp_sum,
   return __uint_as_float(bits);
 }
 
+// The product as the reference spells it: the definition that
+// approx_mac_lean, which the kernels run, is checked against.
 template <int V>
 __device__ __forceinline__ float approx_product(const XFields& x,
                                                 const WFields& w) {
   return compose_product(mantissa_product<V>(w.man, x), x.exp + w.exp,
                          x.sign ^ w.sign);
+}
+
+// acc + approx_product<V>(x, w) in fewer operations, with half of them
+// multiplies: the kernels' multiply-accumulate, the same bits for every
+// pair of bf16 operands and every accumulator a kernel can hold (held
+// against approx_product over all 2**32 pairs on the card by
+// approx_product_check). An SM issues four warp instructions a clock but
+// runs logic, shifts, compares and selects on its ALU pipe at half that
+// rate, while IMAD and FADD go to the FMA pipe: so each line is a multiply
+// of the multiplicand by the line's bit in place (lines & 2**i, made once
+// per multiplier and hoisted over the multiplicands it meets), the lines
+// are ORed three at a time, and the normalizing shift is a multiply. It
+// rests on five facts:
+//   * the mantissa product is below 2**16 for every variant (FLA's largest
+//     line is mw << 7 < 2**15, so FLA's top bit is always 0; HLA's two ORs
+//     sum below 2**16; the head line (mw head) << (8 - k) < 2**16), so its
+//     top bit is prod >> 15;
+//   * it is at least 2**14 unless an operand is zero (the multiplier's top
+//     line or head weight is always set), and a zero operand carries
+//     kZeroExp, so a zero mantissa never needs its own test: e <= 0;
+//   * ((prod >> (7 + top)) & 0xFF) << 16 & 0x7FFFFF is
+//     (prod << (9 - top)) & 0x7F0000, and prod << (9 - top) is
+//     prod * (512 - 256 top);
+//   * the truncation (_TR) clears the bits below 8, of which only bit 7
+//     reaches the fraction, and only when top is 0: it is a mask on the
+//     shifted product, 0x7E0000 + (top << 16). So the lines below bit 8 need
+//     not be cleared: line 0 (mw < 2**8) drops out, and line 1 of a nonzero
+//     mw (hidden bit 7 set) adds exactly 0x100 above bit 7;
+//   * a product with e <= 0 is a signed zero, and adding it leaves every
+//     accumulator but -0 as it is; the kernels' accumulators start at +0
+//     and an f32 sum is -0 only when both terms are, so the add is skipped
+//     (predicated) instead of the zero being selected.
+// Counted with the multiplier's terms hoisted, PC3_TR takes 17 operations
+// (5 multiplies, 2 ORs of three, 10 to compose the f32 bits and add them),
+// 9 of them on the FMA pipe; chip_smoke.py's OPS_PER_MAC holds every
+// variant's count.
+template <int lo, int hi, int step>
+__device__ __forceinline__ int or_lines_lean(int mw, int lines, int out) {
+#pragma unroll
+  for (int i = lo; i < hi; i += step) out |= mw * (lines & (1 << i));
+  return out;
+}
+
+template <int V>
+__device__ __forceinline__ int mantissa_product_lean(int mw, const XFields& x) {
+  if constexpr (V == kFla) {
+    return or_lines_lean<0, 8, 1>(mw, x.lines, 0);
+  } else if constexpr (V == kHla) {
+    return or_lines_lean<0, 8, 2>(mw, x.lines, 0) +
+           or_lines_lean<1, 8, 2>(mw, x.lines, 0);
+  } else {
+    constexpr int k = head_lines(V);
+    const int head = mw * (x.head << (8 - k));
+    if constexpr (!truncated(V)) {
+      return or_lines_lean<0, 8 - k, 1>(mw, x.lines, head);
+    } else {
+      return or_lines_lean<2, 8 - k, 1>(mw, x.lines,
+                                        head | ((x.lines & 2) << 7));
+    }
+  }
+}
+
+template <int V>
+__device__ __forceinline__ float approx_mac_lean(float acc, const XFields& x,
+                                                 const WFields& w) {
+  const int prod = mantissa_product_lean<V>(w.man, x);
+  const int top = V == kFla ? 0 : prod >> 15;
+  const uint32_t shifted =
+      static_cast<uint32_t>(prod) * static_cast<uint32_t>(512 - 256 * top);
+  const uint32_t mask =
+      truncated(V) ? 0x7E0000u + (static_cast<uint32_t>(top) << 16) : 0x7F0000u;
+  const int e = x.exp + w.exp + top;
+  // e >= 255 gives a signed inf: (e << 23) is then at least 0x7F800000
+  // unsigned (e <= 382), and the min drops the mantissa
+  const uint32_t bits =
+      min((static_cast<uint32_t>(e) << 23) | (shifted & mask), 0x7F800000u);
+  return e > 0 ? acc + __uint_as_float((x.sign ^ w.sign) | bits) : acc;
 }
 
 }  // namespace daism

@@ -16,17 +16,17 @@
 // never on M or on the other rows, so a decode step gives the same tokens
 // whatever the batch (and whichever path below it takes).
 //
-// What bounds it. Every approximate MAC is a chain of integer operations on
-// the SM's INT32 lanes (no tensor core computes an OR of shifted partial
-// products). Counted from approx_product.cuh, the PC3_TR chain is about 21
-// integer operations per MAC once the operand-only terms are hoisted: one
-// IMAD for the head line, five AND/OR line selects, the truncation mask,
-// the top-bit normalization (3), the exponent add, the sign XOR and about
-// seven operations to compose the f32 bits; FLA and HLA need 8 line
-// selects. At 64 INT32 lanes per SM that is far above the memory bound at
-// every M the model sends: a (4, 2048) x (2048, 5632) decode product moves
-// 23 MB (7 us) but issues ~0.9e9 integer operations (55 us). The bound is
-// reached only when all 132 SMs run enough independent MAC chains.
+// What bounds it. Every approximate MAC is a chain of integer operations
+// (no tensor core computes an OR of shifted partial products), run as
+// approx_product.cuh's approx_mac_lean: with the operand-only terms
+// hoisted, PC3_TR takes 17 operations a MAC with its f32 add (FLA 20, HLA
+// 23), about half of them IMAD and FADD on the FMA pipe and half logic,
+// shifts, compares and selects on the ALU pipe. An SM issues 4 warp
+// instructions a clock (132 x 128 lanes x 1.98 GHz = 33.4e12 a second),
+// which is far above the memory bound at every M the model sends: a
+// (4, 2048) x (2048, 5632) decode product moves 23 MB (7 us) but issues
+// ~0.78e9 operations (23 us). The bound is reached only when all 132 SMs
+// run enough independent MAC chains with the two pipes kept equally busy.
 //
 // Two paths, one function (the wrapper's _plan picks the path, and the
 // split-K path's row tile and columns a thread, by shape; the bits do not
@@ -201,7 +201,7 @@ __global__ void __launch_bounds__(kThreads)
                                     x_exp[kk][mm], x_sign[kk][mm]};
 #pragma unroll
             for (int j = 0; j < kSub; ++j)
-              part[i][j] += daism::approx_product<V>(xf, wf[j]);
+              part[i][j] = daism::approx_mac_lean<V>(part[i][j], xf, wf[j]);
           }
         }
       }
@@ -341,7 +341,7 @@ __global__ void __launch_bounds__(kSkThreads)
                                   static_cast<uint32_t>(xv.w)};
 #pragma unroll
           for (int j = 0; j < NC; ++j)
-            part[i][j] += daism::approx_product<V>(xf, wf[j]);
+            part[i][j] = daism::approx_mac_lean<V>(part[i][j], xf, wf[j]);
         }
       }
     }

@@ -9,8 +9,8 @@
 //   * keys are walked in tiles of kBK = 128 in ascending order. The KV tile
 //     width is part of the approximate function: p is rounded to bf16
 //     relative to the running max after each tile, and the approximate
-//     multiplier is not scale invariant. The query tile (kBQ = 64) is free:
-//     every query row's arithmetic is independent of the others;
+//     multiplier is not scale invariant. The query tile is free: every
+//     query row's arithmetic is independent of the others;
 //   * per tile: s = q k^T * scale, masked lanes set to -1e30; m_new =
 //     max(m, rowmax s); corr = exp(m - m_new); p = exp(s - m_new) with masked
 //     lanes zeroed; l = l * corr + rowsum p; acc = acc * corr + p v. At the
@@ -54,32 +54,61 @@
 //   step, and load one 16-column V fragment at a time for its two MMAs:
 //   165 KB of shared memory at D = 256, one block an SM.
 //
-// flash_fwd: the six approximate variants, and exact mode on f32 inputs
+// flash_fwd_int: the six approximate variants, and exact mode on f32 inputs
 //   (the tensor cores' TF32 would break the f32 bound). Approximate mode
-//   runs the DAISM product of approx_product.cuh on bf16 fields with q and
-//   p as the multiplier and k and v as the multiplicand, as the reference's
-//   approx_matmul_tile(q, k.T) and approx_matmul_tile(p.bf16, v) do; f32
-//   exact mode multiplies in f32 (fmaf).
-//   What bounds it: integer operations. Every score and every p.v term is a
-//   DAISM product of about 20 integer operations on the SM's 64 INT32
-//   lanes, and a causal (S, S) head needs S (S + 1) / 2 score pairs, each
-//   with 2 D products. Design (simple and correct first):
-//   * one block of 256 threads per (batch x head, 64-query tile); a loop
-//     inside the block walks the KV tiles (the TPU's sequential innermost
-//     grid axis); tiles above the causal diagonal or past kv_len are
-//     skipped, which changes no result (they contribute exactly nothing);
-//   * the q tile is decomposed once into shared memory (packed sign,
-//     exponent, mantissa lines and head weight in one word per element);
-//     each K tile and then each V tile is decomposed once per tile into
-//     one shared buffer, so the decomposition is spread over the 64 or
-//     128 products each element enters;
-//   * scores live in shared memory; one warp per row takes the row max,
-//     the exps and the row sum, and writes p back in place (as the packed
-//     fields of its bf16 rounding in approximate mode); m, l and the
-//     correction per row live in shared memory, acc in registers
-//     (4 rows x D/16 columns per thread, D/16 rounded up to 1, 2, 4, 8, 12
-//     or 16). At D = 256 the fields take 227 KB of shared memory (one block
-//     an SM).
+//   runs the DAISM product with q and p as the multiplier and k and v as
+//   the multiplicand, as the reference's approx_matmul_tile(q, k.T) and
+//   approx_matmul_tile(p.bf16, v) do, through approx_mac_lean
+//   (approx_product.cuh: approx_product's bits in fewer operations); f32
+//   exact mode multiplies in f32 (fmaf). The summation order is fixed: each
+//   score over d ascending and each tile's p.v over its keys ascending, in
+//   one f32 accumulator an output; a row's max and sum over 32 lanes of 4
+//   keys each (keys lane + 32 c), the lanes in a butterfly; l and acc
+//   updated by fmaf. The query tile and the block size change no bit.
+//   What bounds it: issued operations. Every score and every p.v term is a
+//   DAISM product, a dependent chain of 17 (PC3_TR) to 23 (HLA) operations
+//   with its f32 add, about half IMAD/FADD for the FMA pipe and half logic,
+//   shifts, compares and selects for the ALU pipe, which runs at half the
+//   SM's issue rate of 4 warp instructions a clock; a causal (S, S) head
+//   needs S (S + 1) / 2 score pairs, each with 2 D products. The chain is
+//   long, so the SM needs many independent chains in flight and every
+//   issued instruction counts: the design is about warps and operations,
+//   not bytes.
+//   * Warps: a block of 2, 4 or 8 warps owns 8, 16 or 32 query rows (4 a
+//     warp); registers are capped at 128 a thread and shared memory scales
+//     with the block, so an SM holds 8, 4 or 2 blocks: 16 warps at every
+//     head dim from 1 to 256. The head dim is streamed through shared
+//     memory in chunks of 512 elements a warp (K: the tile's 128 keys x 4
+//     warps columns; V: a pass's columns x the keys that fill the chunk),
+//     so the fields take the same room whatever D is (52 KB a 4-warp block
+//     and 112 KB an 8-warp one at D = 256). The p.v accumulators of D = 256
+//     are split into two 128-column passes.
+//   * Grid: one block per (query tile, batch x head), the longest causal
+//     query tiles first over the whole grid (not within a head), so the
+//     short tiles fill the tail. The block size is the wrapper's one rule
+//     (kernels/flash_attention.py::int_plan): the size whose per-SM share
+//     of the grid ends soonest, so short grids (Whisper's 448-row attention,
+//     20 heads) take smaller tiles that fill 132 SMs.
+//   * Scores stay in registers: a warp's 4 rows x 128 keys are 4 x 4 a
+//     lane, and the warp that owns the rows takes their max, exps and sums
+//     with shuffles; no block barrier separates scores, softmax and p.v. p
+//     reaches the lanes that own output columns as multiplier fields, one
+//     32-key group at a time, through a per-warp buffer (warp-synchronous).
+//   * Fields ready for the chain: K, V, q and p are decoded once (per block
+//     and chunk; q per K chunk, under 1% of the products' work) into the
+//     form the product consumes: q and p as int4 {lines, head, exp, sign},
+//     k and v as three word arrays (mantissa, exponent, sign), so no product
+//     unpacks a packed word. A lane multiplies a 4 x NG tile in the scores
+//     (each q field reused over NG key groups, each k field over 4 rows; NG
+//     is a template argument, so no product sits behind a branch and each
+//     operand's line masks and shifts are made once) and RP rows x 4 or 6
+//     columns in p.v.
+//   * Overlap: the next chunk's raw bf16 K or V is loaded with cp.async
+//     into the other stage of a 2-stage ring while this chunk's products
+//     run (the stream runs on across tiles), then decoded once.
+//   * Skips: tiles above the causal diagonal or past kv_len, a tile's keys
+//     at or past the block's last visible key, and the key groups above
+//     each warp's own diagonal are not computed: they add exactly nothing.
 // Both read q, k, v, o through their strides (the (B, S, H, D) layout needs
 // no transpose), compute the grouped-query kv head instead of repeating it,
 // load ragged edges as zeros (a zero mantissa gives a zero product), do not
@@ -95,110 +124,18 @@
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows per block
+constexpr int kBQ = 64;        // flash_fwd_tc's query rows per block
 constexpr int kBK = 128;       // keys per KV tile: part of the function
 constexpr int kMaxD = 256;     // largest head dim
-constexpr int kThreads = 256;  // 16 x 16 threads
-constexpr int kRows = kBQ / 16;     // query rows per thread
-constexpr int kKeys = kBK / 16;     // scores per thread along the keys
-constexpr int kWarps = kThreads / 32;
 constexpr float kMasked = -1e30f;
-constexpr int kExpOffset = 2048;  // packed exponent = exponent + offset
 
-// One element of the multiplier (q or p) packed into a word: mantissa lines
-// in bits 0-7, head weight in bits 8-15, exponent + kExpOffset in 16-30,
-// the f32 sign bit in bit 31.
-template <int V>
-__device__ __forceinline__ uint32_t pack_x(uint16_t bits) {
-  const daism::XFields f = daism::decompose_x<V>(bits);
-  return f.sign | (static_cast<uint32_t>(f.exp + kExpOffset) << 16) |
-         (static_cast<uint32_t>(f.head) << 8) | static_cast<uint32_t>(f.lines);
-}
-
-__device__ __forceinline__ daism::XFields unpack_x(uint32_t w) {
-  daism::XFields f;
-  f.lines = static_cast<int>(w & 0xFFu);
-  f.head = static_cast<int>((w >> 8) & 0xFFu);
-  f.exp = static_cast<int>((w >> 16) & 0x7FFFu) - kExpOffset;
-  f.sign = w & 0x80000000u;
-  return f;
-}
-
-// One element of the multiplicand (k or v): mantissa with its hidden 1 in
-// bits 0-15, biased exponent + kExpOffset in 16-30, sign in bit 31.
-__device__ __forceinline__ uint32_t pack_w(uint16_t bits) {
-  const daism::WFields f = daism::decompose_w(bits);
-  return f.sign | (static_cast<uint32_t>(f.exp + kExpOffset) << 16) |
-         static_cast<uint32_t>(f.man);
-}
-
-__device__ __forceinline__ daism::WFields unpack_w(uint32_t w) {
-  daism::WFields f;
-  f.man = static_cast<int>(w & 0xFFFFu);
-  f.exp = static_cast<int>((w >> 16) & 0x7FFFu) - kExpOffset;
-  f.sign = w & 0x80000000u;
-  return f;
-}
-
-// flash_fwd's exact mode takes f32 inputs only (bf16 runs flash_fwd_tc)
+// flash_fwd_int's exact mode takes f32 inputs only (bf16 runs flash_fwd_tc)
 __device__ __forceinline__ float to_f32(float x) { return x; }
 
 __device__ __forceinline__ void store(uint16_t* dst, float x) {
   *dst = __bfloat16_as_ushort(__float2bfloat16_rn(x));
 }
 __device__ __forceinline__ void store(float* dst, float x) { *dst = x; }
-
-// A q or p element as the multiplier word of mode V.
-template <int V, typename T>
-__device__ __forceinline__ uint32_t encode_x(T x) {
-  if constexpr (V == daism::kExact) {
-    return __float_as_uint(to_f32(x));
-  } else {
-    return pack_x<V>(x);
-  }
-}
-
-// A k or v element as the multiplicand word of mode V.
-template <int V, typename T>
-__device__ __forceinline__ uint32_t encode_w(T x) {
-  if constexpr (V == daism::kExact) {
-    return __float_as_uint(to_f32(x));
-  } else {
-    return pack_w(x);
-  }
-}
-
-// p (f32) as the multiplier word: f32 for exact mode; in approximate mode
-// its bf16 rounding (nearest even), as the reference's p.astype(bfloat16).
-template <int V>
-__device__ __forceinline__ uint32_t encode_p(float p) {
-  if constexpr (V == daism::kExact) {
-    return __float_as_uint(p);
-  } else {
-    return pack_x<V>(__bfloat16_as_ushort(__float2bfloat16_rn(p)));
-  }
-}
-
-// acc + x * w in mode V (x, w: encoded words).
-template <int V>
-struct Mac {
-  daism::XFields x;
-  __device__ __forceinline__ explicit Mac(uint32_t xw) { x = unpack_x(xw); }
-  __device__ __forceinline__ float operator()(float acc, uint32_t ww) const {
-    return acc + daism::approx_product<V>(x, unpack_w(ww));
-  }
-};
-
-template <>
-struct Mac<daism::kExact> {
-  float x;
-  __device__ __forceinline__ explicit Mac(uint32_t xw) {
-    x = __uint_as_float(xw);
-  }
-  __device__ __forceinline__ float operator()(float acc, uint32_t ww) const {
-    return fmaf(x, __uint_as_float(ww), acc);
-  }
-};
 
 struct Params {
   int H, KH, Sq, Skv, D, kv_len, causal;
@@ -208,224 +145,633 @@ struct Params {
       o_sh;
 };
 
-__host__ __device__ constexpr int smem_words(int d) {
-  // q fields [d][kBQ + 1], k fields [d][kBK + 1] / v fields [kBK][d] in one
-  // buffer, scores / p [kBQ][kBK], then m, l and corr per row
-  return d * (kBQ + 1) + d * (kBK + 1) + kBQ * kBK + 3 * kBQ;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// NC: output columns per thread (ceil(D / 16) rounded up to 1, 2, 4, 8, 12
-// or 16)
-template <int V, typename T, int NC>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o, Params p) {
-  extern __shared__ uint32_t smem[];
-  const int D = p.D;
-  uint32_t* qs = smem;                      // [D][kBQ + 1]
-  uint32_t* kv = qs + D * (kBQ + 1);        // [D][kBK + 1] or [kBK][D]
-  uint32_t* ss = kv + D * (kBK + 1);        // [kBQ][kBK]
-  float* m_s = reinterpret_cast<float*>(ss + kBQ * kBK);
-  float* l_s = m_s + kBQ;
-  float* c_s = l_s + kBQ;
+// 16 bytes global -> shared, asynchronously; zeros when !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// flash_fwd_int: the six approximate variants and f32 exact
+// ---------------------------------------------------------------------------
+
+constexpr int kIntRows = 4;      // query rows a warp owns
+constexpr int kIntChunk = 512;   // elements of a K or V chunk, per warp
+constexpr int kGroup = 32;       // keys of a p group: one score a lane
+constexpr int kIntThreads = 256;  // the largest block (8 warps)
+
+// The p.v lane tile of the padded head dim DP: a warp's kIntRows rows x DP
+// output columns over its 32 lanes, RP rows x (NP passes x NV vectors of VW
+// neighbouring columns) a lane. Lanes split into kIntRows / RP row groups
+// of NCG = 8 RP column groups; a pass covers DP / NP columns, so the
+// multiplier (p) of a row is reused over NV VW columns and the
+// multiplicand (v) of a column over RP rows.
+template <int DP>
+struct IntTile;
+template <>
+struct IntTile<16> { static constexpr int RP = 1, VW = 2, NV = 1, NP = 1; };
+template <>
+struct IntTile<32> { static constexpr int RP = 1, VW = 4, NV = 1, NP = 1; };
+template <>
+struct IntTile<64> { static constexpr int RP = 2, VW = 4, NV = 1, NP = 1; };
+template <>
+struct IntTile<128> { static constexpr int RP = 4, VW = 4, NV = 1, NP = 1; };
+template <>
+struct IntTile<192> { static constexpr int RP = 4, VW = 2, NV = 3, NP = 1; };
+template <>
+struct IntTile<256> { static constexpr int RP = 4, VW = 4, NV = 1, NP = 2; };
+
+// The padded head dim a head dim D runs at.
+__host__ __device__ constexpr int int_head_dim(int d) {
+  return d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128
+       : d <= 192 ? 192 : 256;
+}
+
+// Operand fields as the product loops read them from shared memory.
+// Approximate: the multiplier (q, p) as one int4 {lines, head, exp, sign}
+// (daism::XFields) and the multiplicand (k, v) in three word arrays (mantissa,
+// exponent, sign: daism::WFields), so no product unpacks a field. f32 exact:
+// the values themselves.
+template <int V>
+struct IntFields {
+  using X = int4;
+  using W = daism::WFields;
+  static constexpr int kWArrays = 3;
+};
+template <>
+struct IntFields<daism::kExact> {
+  using X = float;
+  using W = float;
+  static constexpr int kWArrays = 1;
+};
+
+// Shared memory of one block, bytes: two raw chunks (the ring the next
+// chunk's cp.async fills), the q rows as loaded, q's fields for one K chunk,
+// one 32-key p group a warp, and the multiplicand fields of one chunk.
+template <int V, typename T>
+__host__ __device__ constexpr int int_smem_bytes(int dp, int warps) {
+  const int chunk = kIntChunk * warps;
+  const int rows = kIntRows * warps;
+  const int x_bytes = static_cast<int>(sizeof(typename IntFields<V>::X));
+  return static_cast<int>(sizeof(T)) * (2 * chunk + rows * dp) +
+         x_bytes * (rows * (chunk / kBK) + warps * kIntRows * kGroup) +
+         4 * IntFields<V>::kWArrays * chunk;
+}
+
+template <int V, typename T>
+__device__ __forceinline__ typename IntFields<V>::X x_fields(T x) {
+  if constexpr (V == daism::kExact) {
+    return to_f32(x);
+  } else {
+    const daism::XFields f = daism::decompose_x<V>(x);
+    return make_int4(f.lines, f.head, f.exp, static_cast<int>(f.sign));
+  }
+}
+
+// p (f32) as the multiplier: f32 in exact mode; in approximate mode its bf16
+// rounding (nearest even), as the reference's p.astype(bfloat16)
+template <int V>
+__device__ __forceinline__ typename IntFields<V>::X p_fields(float p) {
+  if constexpr (V == daism::kExact) {
+    return p;
+  } else {
+    return x_fields<V, uint16_t>(__bfloat16_as_ushort(__float2bfloat16_rn(p)));
+  }
+}
+
+// acc + x * w in mode V
+template <int V>
+__device__ __forceinline__ float mac(float acc,
+                                     const typename IntFields<V>::X& x,
+                                     const typename IntFields<V>::W& w) {
+  if constexpr (V == daism::kExact) {
+    return fmaf(x, w, acc);
+  } else {
+    return daism::approx_mac_lean<V>(
+        acc, daism::XFields{x.x, x.y, x.z, static_cast<uint32_t>(x.w)}, w);
+  }
+}
+
+// element i of the multiplicand buffer (arrays of n words)
+template <int V>
+__device__ __forceinline__ typename IntFields<V>::W w_at(const uint32_t* wf,
+                                                         int n, int i) {
+  if constexpr (V == daism::kExact) {
+    return __uint_as_float(wf[i]);
+  } else {
+    return daism::WFields{static_cast<int>(wf[i]), static_cast<int>(wf[n + i]),
+                          wf[2 * n + i]};
+  }
+}
+
+// N neighbouring words (N = 2 or 4, aligned to N words), one vector load
+template <int N>
+__device__ __forceinline__ void words(const uint32_t* src, uint32_t (&w)[N]) {
+  if constexpr (N == 4) {
+    const uint4 x = *reinterpret_cast<const uint4*>(src);
+    w[0] = x.x; w[1] = x.y; w[2] = x.z; w[3] = x.w;
+  } else {
+    static_assert(N == 2, "two or four words");
+    const uint2 x = *reinterpret_cast<const uint2*>(src);
+    w[0] = x.x; w[1] = x.y;
+  }
+}
+
+// elements i .. i + N - 1 of the multiplicand buffer
+template <int V, int N>
+__device__ __forceinline__ void w_vec(const uint32_t* wf, int n, int i,
+                                      typename IntFields<V>::W (&out)[N]) {
+  uint32_t a[N];
+  words<N>(wf + i, a);
+  if constexpr (V == daism::kExact) {
+#pragma unroll
+    for (int e = 0; e < N; ++e) out[e] = __uint_as_float(a[e]);
+  } else {
+    uint32_t x[N], s[N];
+    words<N>(wf + n + i, x);
+    words<N>(wf + 2 * n + i, s);
+#pragma unroll
+    for (int e = 0; e < N; ++e)
+      out[e] = daism::WFields{static_cast<int>(a[e]), static_cast<int>(x[e]),
+                              s[e]};
+  }
+}
+
+// the elements of one 16-byte piece of shared memory
+template <typename T>
+__device__ __forceinline__ void piece(const T* src, T (&e)[16 / sizeof(T)]) {
+  const uint4 x = *reinterpret_cast<const uint4*>(src);
+  const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+  if constexpr (sizeof(T) == 2) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      e[i] = static_cast<T>(i % 2 ? w[i / 2] >> 16 : w[i / 2] & 0xFFFFu);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) e[i] = __uint_as_float(w[i]);
+  }
+}
+
+// the multiplicand fields of element i (arrays of n words)
+template <int V, typename T>
+__device__ __forceinline__ void put_w(uint32_t* wf, int n, int i, T x) {
+  if constexpr (V == daism::kExact) {
+    wf[i] = __float_as_uint(to_f32(x));
+  } else {
+    const daism::WFields f = daism::decompose_w(x);
+    wf[i] = static_cast<uint32_t>(f.man);
+    wf[n + i] = static_cast<uint32_t>(f.exp);
+    wf[2 * n + i] = f.sign;
+  }
+}
+
+// a[g] of a 4-register array, g warp-uniform (no local memory)
+__device__ __forceinline__ float pick4(const float (&a)[4], int g) {
+  return g == 0 ? a[0] : g == 1 ? a[1] : g == 2 ? a[2] : a[3];
+}
+
+// The scores of a warp's 4 rows at its lane's first NG keys (lane + 32 c)
+// over one K chunk's dck head-dim columns, d ascending: a 4 x NG tile a
+// lane, each q field reused over NG keys and each k field over 4 rows (NG
+// is a template argument so that no product sits behind a branch). `wk`:
+// the K fields [d][key] offset by the lane.
+template <int V, int NG>
+__device__ __forceinline__ void qk_chunk(float (&s)[kIntRows][4],
+                                         const typename IntFields<V>::X* qw,
+                                         const uint32_t* wk, int n, int dck) {
+#pragma unroll 1
+  for (int dd = 0; dd < dck; ++dd) {
+    typename IntFields<V>::W kw[NG];
+#pragma unroll
+    for (int c = 0; c < NG; ++c) kw[c] = w_at<V>(wk, n, dd * kBK + 32 * c);
+#pragma unroll
+    for (int r = 0; r < kIntRows; ++r) {
+      const typename IntFields<V>::X xq = qw[r * dck + dd];
+#pragma unroll
+      for (int c = 0; c < NG; ++c) s[r][c] = mac<V>(s[r][c], xq, kw[c]);
+    }
+  }
+}
+
+// One block: a tile of 4 x warps query rows of one (batch, head); each warp
+// owns 4 rows. Keys are walked in 128-key tiles; a tile's K and V arrive as
+// a stream of chunks of 512 x warps elements (K: all 128 keys x 4 x warps
+// head-dim columns; V: kcv keys x a pass's columns), each cp.async-loaded
+// raw into a 2-stage ring one chunk ahead, then decoded once into the
+// multiplicand fields that every warp reads. `vec`: 16-byte cp.async pieces
+// (D a multiple of a piece, rows aligned); else plain loads.
+template <int V, typename T, int DP>
+__global__ void __launch_bounds__(kIntThreads, 2)
+    flash_fwd_int(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, T* __restrict__ o, Params p,
+                  int vec) {
+  using Tile = IntTile<DP>;
+  using X = typename IntFields<V>::X;
+  using WL = typename IntFields<V>::W;
+  constexpr int RP = Tile::RP, VW = Tile::VW, NV = Tile::NV, NP = Tile::NP;
+  constexpr int NCG = 8 * RP;          // column groups of a warp
+  constexpr int DPP = DP / NP;         // columns of a pass
+  constexpr int CPP = NV * VW;         // columns of a pass a lane owns
+  constexpr int VE = 16 / sizeof(T);   // elements of a 16-byte piece
+  static_assert(NCG * CPP == DPP && (kIntRows / RP) * NCG == 32, "lane tile");
+
+  const int nw = blockDim.x / 32;
+  const int nt = blockDim.x;
+  const int bq = kIntRows * nw;        // query rows of the block
+  const int E = kIntChunk * nw;        // elements of a chunk
+  const int dck = E / kBK;             // head-dim columns of a K chunk
+  const int kcv = min(kBK, E / DPP);   // keys of a V chunk
+
+  extern __shared__ uint4 smem_int[];
+  T* const raw = reinterpret_cast<T*>(smem_int);       // [2][E]
+  T* const qraw = raw + 2 * E;                         // [bq][DP]
+  X* const qf = reinterpret_cast<X*>(qraw + bq * DP);  // [bq][dck]
+  X* const pf = qf + bq * dck;                         // [nw][4][kGroup]
+  uint32_t* const wf =
+      reinterpret_cast<uint32_t*>(pf + nw * kIntRows * kGroup);  // [arrays][E]
 
   const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int b = blockIdx.y / p.H;
-  const int h = blockIdx.y % p.H;
+  const int nq = (p.Sq + bq - 1) / bq;
+  const int nbh = gridDim.x / nq;
+  const int bh = blockIdx.x % nbh;
+  // the whole grid issues the longest causal query tiles first
+  const int q0 = (nq - 1 - blockIdx.x / nbh) * bq;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
   const int kvh = h / (p.H / p.KH);
-  const int q0 = blockIdx.x * kBQ;
-
   const T* qb = q + b * p.q_sb + h * p.q_sh;
   const T* kb = k + b * p.k_sb + kvh * p.k_sh;
   const T* vb = v + b * p.v_sb + kvh * p.v_sh;
   T* ob = o + b * p.o_sb + h * p.o_sh;
 
-  // the q tile's fields, once (consecutive threads: consecutive d)
-  for (int idx = tid; idx < kBQ * D; idx += kThreads) {
-    const int r = idx / D;
-    const int d = idx % D;
-    const int gq = q0 + r;
-    const T x = gq < p.Sq ? qb[gq * p.q_ss + d] : T(0);
-    qs[d * (kBQ + 1) + r] = encode_x<V>(x);
-  }
-  if (tid < kBQ) {
-    m_s[tid] = -INFINITY;
-    l_s[tid] = 0.0f;
-  }
-  __syncthreads();
-
-  float acc[kRows][NC];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int j = 0; j < NC; ++j) acc[i][j] = 0.0f;
-
   // tiles wholly above the causal diagonal or past kv_len contribute
-  // nothing: skip them
-  const int q_last = min(q0 + kBQ, p.Sq) - 1;
+  // nothing: skip them; so do a tile's keys at or past k_end (masked for
+  // every row of the block)
+  const int q_last = min(q0 + bq, p.Sq) - 1;
   const int k_end = p.causal ? min(p.kv_len, q_last + 1) : p.kv_len;
+  const int n_tiles = (k_end + kBK - 1) / kBK;
+  const int nk = (p.D + dck - 1) / dck;  // K chunks: the head dim's columns
+  auto n_v = [&](int j) { return (min(kBK, k_end - j * kBK) + kcv - 1) / kcv; };
 
-  for (int k0 = 0; k0 < k_end; k0 += kBK) {
-    // K tile -> multiplicand fields [d][key]
-    for (int idx = tid; idx < kBK * D; idx += kThreads) {
-      const int c = idx / D;
-      const int d = idx % D;
-      const int gk = k0 + c;
-      const T x = gk < p.Skv ? kb[gk * p.k_ss + d] : T(0);
-      kv[d * (kBK + 1) + c] = encode_w<V>(x);
+  const int r0 = q0 + kIntRows * warp;  // the warp's first query row
+  const bool live = r0 < p.Sq;
+  const int rg = lane / NCG;  // the lane's p.v rows rg RP .. rg RP + RP - 1
+  const int cg = lane % NCG;
+
+  // rows [row0, row0 + rows) x columns [col0, col0 + cols) of a (sequence,
+  // D) slice into dst [rows][cols]; zeros at rows >= limit or columns >= D
+  auto load = [&](T* dst, const T* src, long long ss, int row0, int rows,
+                  int limit, int col0, int cols) {
+    if (vec) {
+      const int pieces = cols / VE;
+      for (int i = tid; i < rows * pieces; i += nt) {
+        const int r = i / pieces;
+        const int c = col0 + (i % pieces) * VE;
+        const bool ok = row0 + r < limit && c < p.D;
+        cp_async16(dst + r * cols + (c - col0),
+                   src + (ok ? (row0 + r) * ss + c : 0), ok);
+      }
+    } else {
+      for (int i = tid; i < rows * cols; i += nt) {
+        const int r = i / cols;
+        const int c = col0 + i % cols;
+        dst[i] = row0 + r < limit && c < p.D ? src[(row0 + r) * ss + c] : T(0);
+      }
     }
-    __syncthreads();
+  };
+  // chunk `idx` of tile j into ring stage `st`: K (pass < 0) its head-dim
+  // columns idx dck.., all 128 keys; V pass `pass`'s columns, keys idx kcv..
+  auto issue = [&](int j, int pass, int idx, int st) {
+    T* dst = raw + st * E;
+    if (pass < 0)
+      load(dst, kb, p.k_ss, j * kBK, kBK, p.Skv, idx * dck, dck);
+    else
+      load(dst, vb, p.v_ss, j * kBK + idx * kcv, kcv, p.Skv, pass * DPP, DPP);
+    cp_async_commit();
+  };
 
-    // scores: rows ty + 16 i, keys tx + 16 j, the sum over d ascending
-    {
-      float s[kRows][kKeys];
+  float s[kIntRows][4];  // scores (then p): rows r0 + r, keys lane + 32 c
+  float m[kIntRows], l[kIntRows], corr[kIntRows];  // the same on every lane
 #pragma unroll
-      for (int i = 0; i < kRows; ++i)
+  for (int r = 0; r < kIntRows; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.0f;
+    corr[r] = 1.0f;
 #pragma unroll
-        for (int j = 0; j < kKeys; ++j) s[i][j] = 0.0f;
-      for (int d = 0; d < D; ++d) {
-        uint32_t kw[kKeys];
+    for (int c = 0; c < 4; ++c) s[r][c] = 0.0f;
+  }
+  float acc[NP][RP][CPP];  // columns ((pass NV + t) NCG + cg) VW + e
+  float pv[RP][CPP];       // this pass's p.v over the tile's keys
 #pragma unroll
-        for (int j = 0; j < kKeys; ++j) kw[j] = kv[d * (kBK + 1) + tx + 16 * j];
+  for (int i = 0; i < RP; ++i)
 #pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          const Mac<V> mac(qs[d * (kBQ + 1) + ty + 16 * i]);
+    for (int e = 0; e < CPP; ++e) {
+      pv[i][e] = 0.0f;
 #pragma unroll
-          for (int j = 0; j < kKeys; ++j) s[i][j] = mac(s[i][j], kw[j]);
+      for (int pp = 0; pp < NP; ++pp) acc[pp][i][e] = 0.0f;
+    }
+  int pg = -1;  // the p group in this warp's pf
+
+  load(qraw, qb, p.q_ss, q0, bq, p.Sq, 0, DP);
+  int j = 0, pass = -1, idx = 0, st = 0;
+  issue(0, -1, 0, 0);
+  for (;;) {
+    // the step after this one; its chunk loads while this one computes
+    int nj = j, npass = pass, nidx = idx + 1;
+    if (pass < 0) {
+      if (nidx == nk) npass = nidx = 0;
+    } else if (nidx == n_v(j)) {
+      nidx = 0;
+      if (++npass == NP) {
+        npass = -1;
+        ++nj;
+      }
+    }
+    const bool more = nj < n_tiles;
+    if (more) {
+      issue(nj, npass, nidx, st ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // the chunk is in; every warp is done with the fields
+
+    const T* src = raw + st * E;
+    if (pass < 0) {
+      // K [key][d] -> fields [d][key]; q's columns of the chunk -> [row][d]
+      for (int i = tid; i < kBK * (dck / VE); i += nt) {
+        const int key = i % kBK;
+        const int c0 = (i / kBK) * VE;
+        T e[VE];
+        piece(src + key * dck + c0, e);
+#pragma unroll
+        for (int u = 0; u < VE; ++u) put_w<V>(wf, E, (c0 + u) * kBK + key, e[u]);
+      }
+      for (int i = tid; i < bq * (dck / VE); i += nt) {
+        const int r = i / (dck / VE);
+        const int c0 = (i % (dck / VE)) * VE;
+        T e[VE];
+        piece(qraw + r * DP + idx * dck + c0, e);
+#pragma unroll
+        for (int u = 0; u < VE; ++u) qf[r * dck + c0 + u] = x_fields<V>(e[u]);
+      }
+    } else {
+      // V [key][d] -> fields [key][d]
+      for (int i = tid; i < kcv * DPP / VE; i += nt) {
+        T e[VE];
+        piece(src + i * VE, e);
+#pragma unroll
+        for (int u = 0; u < VE; ++u) put_w<V>(wf, E, i * VE + u, e[u]);
+      }
+    }
+    __syncthreads();  // the fields are in
+
+    const int k0 = j * kBK;
+    // the last key offset of this tile any row of the warp sees
+    const int kmax = min(min(kBK - 1, k_end - 1 - k0),
+                         p.causal ? r0 + kIntRows - 1 - k0 : kBK - 1);
+    if (live && kmax >= 0) {
+      if (pass < 0) {
+        // scores over this chunk's columns, d ascending; key groups past
+        // kmax are masked for every row of the warp
+        if (idx == 0) {
+#pragma unroll
+          for (int r = 0; r < kIntRows; ++r)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) s[r][c] = 0.0f;
+        }
+        const X* qw = qf + kIntRows * warp * dck;
+        switch (kmax / kGroup) {
+          case 0: qk_chunk<V, 1>(s, qw, wf + lane, E, dck); break;
+          case 1: qk_chunk<V, 2>(s, qw, wf + lane, E, dck); break;
+          case 2: qk_chunk<V, 3>(s, qw, wf + lane, E, dck); break;
+          default: qk_chunk<V, 4>(s, qw, wf + lane, E, dck); break;
+        }
+        if (idx == nk - 1) {
+          // the online softmax of each row, by the warp that owns it: the
+          // row max and the row sum over its 32 lanes (4 keys each)
+#pragma unroll
+          for (int r = 0; r < kIntRows; ++r) {
+            const int gq = r0 + r;
+            bool keep[4];
+            float mx = -INFINITY;
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int gk = k0 + lane + 32 * c;
+              keep[c] = gk < p.kv_len && (!p.causal || gk <= gq);
+              s[r][c] = keep[c] ? __fmul_rn(s[r][c], p.scale) : kMasked;
+              mx = fmaxf(mx, s[r][c]);
+            }
+#pragma unroll
+            for (int off = 16; off > 0; off /= 2)
+              mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+            const float m_new = fmaxf(m[r], mx);
+            corr[r] = expf(__fsub_rn(m[r], m_new));
+            float sum = 0.0f;
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              s[r][c] = keep[c] ? expf(__fsub_rn(s[r][c], m_new)) : 0.0f;
+              sum = __fadd_rn(sum, s[r][c]);
+            }
+#pragma unroll
+            for (int off = 16; off > 0; off /= 2)
+              sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, off));
+            l[r] = fmaf(l[r], corr[r], sum);
+            m[r] = m_new;
+          }
+          pg = -1;
+        }
+      } else {
+        // p.v over this chunk's keys, ascending, 32-key groups of p at a
+        // time (the lanes that hold a group's p write its fields)
+        X* const pw = pf + kIntRows * kGroup * warp;
+        const int kb0 = idx * kcv;
+        const int kend = min(kb0 + kcv, kmax + 1);
+        for (int seg = kb0; seg < kend;) {
+          const int g = seg / kGroup;
+          if (g != pg) {
+            __syncwarp();
+#pragma unroll
+            for (int r = 0; r < kIntRows; ++r)
+              pw[r * kGroup + lane] = p_fields<V>(pick4(s[r], g));
+            __syncwarp();
+            pg = g;
+          }
+          const int seg_end = min(kend, (g + 1) * kGroup);
+          const X* const px = pw + rg * RP * kGroup;
+          const uint32_t* vrow = wf + (seg - kb0) * DPP + cg * VW;
+#pragma unroll 1
+          for (int kk = seg; kk < seg_end; ++kk, vrow += DPP) {
+            X xp[RP];
+#pragma unroll
+            for (int i = 0; i < RP; ++i) xp[i] = px[i * kGroup + (kk & 31)];
+#pragma unroll
+            for (int t = 0; t < NV; ++t) {
+              WL wv[VW];
+              w_vec<V, VW>(vrow, E, t * NCG * VW, wv);
+#pragma unroll
+              for (int i = 0; i < RP; ++i)
+#pragma unroll
+                for (int e = 0; e < VW; ++e)
+                  pv[i][t * VW + e] = mac<V>(pv[i][t * VW + e], xp[i], wv[e]);
+            }
+          }
+          seg = seg_end;
+        }
+        if (idx == n_v(j) - 1) {
+          // the pass's columns: acc = acc * corr + p v
+#pragma unroll
+          for (int i = 0; i < RP; ++i) {
+            const float c = pick4(corr, rg * RP + i);
+#pragma unroll
+            for (int pp = 0; pp < NP; ++pp) {
+              if (pp != pass) continue;
+#pragma unroll
+              for (int e = 0; e < CPP; ++e) {
+                acc[pp][i][e] = fmaf(acc[pp][i][e], c, pv[i][e]);
+                pv[i][e] = 0.0f;
+              }
+            }
+          }
         }
       }
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const int r = ty + 16 * i;
-#pragma unroll
-        for (int j = 0; j < kKeys; ++j) {
-          const int c = tx + 16 * j;
-          const int gk = k0 + c;
-          const bool keep = gk < p.kv_len && (!p.causal || gk <= q0 + r);
-          ss[r * kBK + c] = __float_as_uint(keep ? s[i][j] * p.scale : kMasked);
-        }
-      }
     }
-    __syncthreads();
-
-    // one warp per row: max, exps, sum; p replaces s in place
-    for (int r = warp; r < kBQ; r += kWarps) {
-      float sv[kBK / 32];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < kBK / 32; ++c) {
-        sv[c] = __uint_as_float(ss[r * kBK + lane + 32 * c]);
-        mx = fmaxf(mx, sv[c]);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off /= 2)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      const float corr = expf(m_prev - m_new);
-      float sum = 0.0f;
-#pragma unroll
-      for (int c = 0; c < kBK / 32; ++c) {
-        const int gk = k0 + lane + 32 * c;
-        const bool keep = gk < p.kv_len && (!p.causal || gk <= q0 + r);
-        const float pc = keep ? expf(sv[c] - m_new) : 0.0f;
-        sum += pc;
-        ss[r * kBK + lane + 32 * c] = encode_p<V>(pc);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off /= 2)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (lane == 0) {
-        m_s[r] = m_new;
-        l_s[r] = l_s[r] * corr + sum;
-        c_s[r] = corr;
-      }
-    }
-
-    // V tile -> multiplicand fields [key][d] (K is no longer read)
-    for (int idx = tid; idx < kBK * D; idx += kThreads) {
-      const int c = idx / D;
-      const int d = idx % D;
-      const int gk = k0 + c;
-      const T x = gk < p.Skv ? vb[gk * p.v_ss + d] : T(0);
-      kv[c * D + d] = encode_w<V>(x);
-    }
-    __syncthreads();
-
-    // p v over the tile's keys ascending; acc = acc * corr + p v
-    {
-      float pv[kRows][NC];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < NC; ++j) pv[i][j] = 0.0f;
-      for (int c = 0; c < kBK; ++c) {
-        uint32_t vw[NC];
-#pragma unroll
-        for (int j = 0; j < NC; ++j) {
-          const int d = tx + 16 * j;
-          vw[j] = d < D ? kv[c * D + d] : 0u;
-        }
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          const Mac<V> mac(ss[(ty + 16 * i) * kBK + c]);
-#pragma unroll
-          for (int j = 0; j < NC; ++j) pv[i][j] = mac(pv[i][j], vw[j]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float corr = c_s[ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < NC; ++j) acc[i][j] = acc[i][j] * corr + pv[i][j];
-      }
-    }
-    __syncthreads();  // the next tile overwrites kv and ss
+    if (!more) break;
+    j = nj;
+    pass = npass;
+    idx = nidx;
+    st ^= 1;
   }
 
+  // o = acc / max(l, 1e-30), rounded to the input type
+  if (!live) return;
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int r = ty + 16 * i;
-    const int gq = q0 + r;
+  for (int i = 0; i < RP; ++i) {
+    const int gq = r0 + rg * RP + i;
     if (gq >= p.Sq) continue;
-    const float l = fmaxf(l_s[r], 1e-30f);
+    const float lr = fmaxf(pick4(l, rg * RP + i), 1e-30f);
 #pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      const int d = tx + 16 * j;
-      if (d < D) store(&ob[gq * p.o_ss + d], acc[i][j] / l);
-    }
+    for (int pp = 0; pp < NP; ++pp)
+#pragma unroll
+      for (int t = 0; t < NV; ++t)
+#pragma unroll
+        for (int e = 0; e < VW; ++e) {
+          const int d = pp * DPP + (t * NCG + cg) * VW + e;
+          if (d < p.D) store(&ob[gq * p.o_ss + d], acc[pp][i][t * VW + e] / lr);
+        }
   }
 }
 
-template <int V, typename T, int NC>
-int launch_nc(const void* q, const void* k, const void* v, void* o,
-              const Params& p, dim3 grid, cudaStream_t s) {
-  const int bytes = smem_words(p.D) * static_cast<int>(sizeof(uint32_t));
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<V, T, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+// The integer kernel of (variant, dtype) at head dim d and its shared
+// memory a block of `warps` warps; fn is null for a variant it does not
+// take.
+struct IntKernel {
+  const void* fn;
+  int smem;
+};
+
+template <int V, typename T>
+IntKernel int_kernel_of(int d, int warps) {
+  const int dp = int_head_dim(d);
+  const int bytes = int_smem_bytes<V, T>(dp, warps);
+  switch (dp) {
+    case 16: return {reinterpret_cast<const void*>(flash_fwd_int<V, T, 16>), bytes};
+    case 32: return {reinterpret_cast<const void*>(flash_fwd_int<V, T, 32>), bytes};
+    case 64: return {reinterpret_cast<const void*>(flash_fwd_int<V, T, 64>), bytes};
+    case 128: return {reinterpret_cast<const void*>(flash_fwd_int<V, T, 128>), bytes};
+    case 192: return {reinterpret_cast<const void*>(flash_fwd_int<V, T, 192>), bytes};
+    default: return {reinterpret_cast<const void*>(flash_fwd_int<V, T, 256>), bytes};
+  }
+}
+
+IntKernel int_kernel(int variant, int is_f32, int d, int warps) {
+  if (is_f32)
+    return variant == daism::kExact ? int_kernel_of<daism::kExact, float>(d, warps)
+                                    : IntKernel{nullptr, 0};
+  switch (variant) {
+    case daism::kFla: return int_kernel_of<daism::kFla, uint16_t>(d, warps);
+    case daism::kHla: return int_kernel_of<daism::kHla, uint16_t>(d, warps);
+    case daism::kPc2: return int_kernel_of<daism::kPc2, uint16_t>(d, warps);
+    case daism::kPc3: return int_kernel_of<daism::kPc3, uint16_t>(d, warps);
+    case daism::kPc2Tr: return int_kernel_of<daism::kPc2Tr, uint16_t>(d, warps);
+    case daism::kPc3Tr: return int_kernel_of<daism::kPc3Tr, uint16_t>(d, warps);
+    default: return {nullptr, 0};
+  }
+}
+
+bool valid_warps(int warps) { return warps == 2 || warps == 4 || warps == 8; }
+
+bool aligned(const void* ptr, int bytes) {
+  return reinterpret_cast<uintptr_t>(ptr) % bytes == 0;
+}
+
+int launch_int(const void* q, const void* k, const void* v, void* o,
+               const Params& p, int bh, int variant, int is_f32, int warps,
+               cudaStream_t s) {
+  if (!valid_warps(warps)) return static_cast<int>(cudaErrorInvalidValue);
+  const IntKernel kern = int_kernel(variant, is_f32, p.D, warps);
+  if (kern.fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks =
+      static_cast<long long>((p.Sq + kIntRows * warps - 1) / (kIntRows * warps)) * bh;
+  if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kern.smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kern.fn,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_fwd<V, T, NC><<<grid, kThreads, bytes, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), p);
+  // whole 16-byte pieces of q, k, v rows (cp.async)
+  const int el = is_f32 ? 4 : 8;
+  int vec = p.D % el == 0 && aligned(q, 16) && aligned(k, 16) &&
+            aligned(v, 16) && p.q_sb % el == 0 && p.q_ss % el == 0 &&
+            p.q_sh % el == 0 && p.k_sb % el == 0 && p.k_ss % el == 0 &&
+            p.k_sh % el == 0 && p.v_sb % el == 0 && p.v_ss % el == 0 &&
+            p.v_sh % el == 0;
+  Params pc = p;
+  void* args[] = {const_cast<void**>(&q), const_cast<void**>(&k),
+                  const_cast<void**>(&v), &o, &pc, &vec};
+  err = cudaLaunchKernel(kern.fn, dim3(static_cast<unsigned>(blocks)),
+                         dim3(32 * warps), args, kern.smem, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int V, typename T>
-int launch(const void* q, const void* k, const void* v, void* o,
-           const Params& p, dim3 grid, cudaStream_t s) {
-  const int nc = (p.D + 15) / 16;
-  if (nc <= 1) return launch_nc<V, T, 1>(q, k, v, o, p, grid, s);
-  if (nc <= 2) return launch_nc<V, T, 2>(q, k, v, o, p, grid, s);
-  if (nc <= 4) return launch_nc<V, T, 4>(q, k, v, o, p, grid, s);
-  if (nc <= 8) return launch_nc<V, T, 8>(q, k, v, o, p, grid, s);
-  if (nc <= 12) return launch_nc<V, T, 12>(q, k, v, o, p, grid, s);
-  return launch_nc<V, T, 16>(q, k, v, o, p, grid, s);
+// approx_mac_lean against acc + approx_product over every pair of bf16 bit
+// patterns, at acc = +0 (the product's own bits) and acc = 1.5: block x
+// takes the multiplier x, its threads the 65536 multiplicands; the pairs
+// whose bits differ are added to *bad.
+template <int V>
+__global__ void __launch_bounds__(256)
+    product_check(unsigned long long* bad) {
+  const daism::XFields x = daism::decompose_x<V>(static_cast<uint16_t>(blockIdx.x));
+  unsigned long long n = 0;
+  for (int wb = threadIdx.x; wb < 65536; wb += blockDim.x) {
+    const daism::WFields w = daism::decompose_w(static_cast<uint16_t>(wb));
+    const float p = daism::approx_product<V>(x, w);
+    const float accs[2] = {0.0f, 1.5f};
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+      n += __float_as_uint(accs[a] + p) !=
+           __float_as_uint(daism::approx_mac_lean<V>(accs[a], x, w));
+  }
+  if (n) atomicAdd(bad, n);
 }
-
 
 // ---------------------------------------------------------------------------
 // flash_fwd_tc: exact mode, bf16, on the tensor cores
@@ -454,25 +800,6 @@ struct TcTile {
   static constexpr int kMinBlocks = KD <= 4 ? 3 : KD <= 6 ? 2 : 1;
   static_assert(kQs || kBQ <= kKeys, "q fits in a K buffer");
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zeros when !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile(
@@ -798,10 +1125,6 @@ int launch_tc_kd(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-bool aligned(const void* ptr, int bytes) {
-  return reinterpret_cast<uintptr_t>(ptr) % bytes == 0;
-}
-
 int launch_tc(const void* q, const void* k, const void* v, void* o,
               const Params& p, int bh, cudaStream_t s) {
   const int nq = (p.Sq + kBQ - 1) / kBQ;
@@ -834,19 +1157,23 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// C entry point, bound with ctypes. Launches on `stream`, allocates
-// nothing, does not synchronize; returns cudaGetLastError() of the launch
-// (0 = ok). `strides` holds 12 element strides: batch, sequence and head
-// of q, k, v and o, in that order (the head dim is contiguous). `is_f32`:
-// the inputs and output are f32 (exact mode only) instead of bf16.
-// bf16 exact launches flash_fwd_tc, everything else flash_fwd.
+// C entry points, bound with ctypes.
+
+// Launches on `stream`, allocates nothing, does not synchronize; returns
+// cudaGetLastError() of the launch (0 = ok). `strides` holds 12 element
+// strides: batch, sequence and head of q, k, v and o, in that order (the
+// head dim is contiguous). `is_f32`: the inputs and output are f32 (exact
+// mode only) instead of bf16. bf16 exact launches flash_fwd_tc, everything
+// else flash_fwd_int with blocks of `warps` warps (2, 4 or 8: query tiles
+// of 8, 16 or 32 rows; kernels/flash_attention.py::int_plan picks them).
 // The caller guarantees 1 <= D <= 256, H % KH == 0, B * H <= 65535,
 // 1 <= kv_len <= Skv and Sq >= 1.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, int B, int H, int KH, int Sq,
                                int Skv, int D, int kv_len, int causal,
                                float scale, int variant, int is_f32,
-                               const long long* strides, void* stream) {
+                               int warps, const long long* strides,
+                               void* stream) {
   if (D < 1 || D > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
   Params p{H, KH, Sq, Skv, D, kv_len, causal, scale,
            strides[0], strides[1], strides[2], strides[3], strides[4],
@@ -854,29 +1181,58 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
            strides[10], strides[11]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // bf16 exact runs on the tensor cores; f32 exact and the approximate
-  // variants on flash_fwd (see the note at the top)
+  // variants on flash_fwd_int (see the note at the top)
   if (!is_f32 && variant == daism::kExact)
     return launch_tc(q, k, v, o, p, B * H, s);
-  const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
-  if (is_f32) {
-    if (variant != daism::kExact)
-      return static_cast<int>(cudaErrorInvalidValue);
-    return launch<daism::kExact, float>(q, k, v, o, p, grid, s);
-  }
+  return launch_int(q, k, v, o, p, B * H, variant, is_f32, warps, s);
+}
+
+// What the integer kernel of (variant, f32 or bf16, head dim d) compiled to
+// at blocks of `warps` warps: out[0] blocks an SM holds
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[1] registers a
+// thread, out[2] local memory a thread (spills), bytes, out[3] dynamic
+// shared memory a block, bytes. Returns a CUDA error (0 = ok).
+extern "C" int flash_attention_int_info(int variant, int is_f32, int d,
+                                        int warps, int* out) {
+  if (d < 1 || d > kMaxD || !valid_warps(warps))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const IntKernel kern = int_kernel(variant, is_f32, d, warps);
+  if (kern.fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kern.smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kern.fn,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kern.fn);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, kern.fn, 32 * warps, kern.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = blocks;
+  out[1] = attr.numRegs;
+  out[2] = static_cast<int>(attr.localSizeBytes);
+  out[3] = kern.smem;
+  return 0;
+}
+
+// Launches product_check of an approximate `variant` on `stream`: adds to
+// the device counter *bad the bf16 pairs whose lean and reference products
+// differ. Returns a CUDA error (0 = ok).
+extern "C" int approx_product_check(int variant, unsigned long long* bad,
+                                    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(65536), block(256);
   switch (variant) {
-    case daism::kFla:
-      return launch<daism::kFla, uint16_t>(q, k, v, o, p, grid, s);
-    case daism::kHla:
-      return launch<daism::kHla, uint16_t>(q, k, v, o, p, grid, s);
-    case daism::kPc2:
-      return launch<daism::kPc2, uint16_t>(q, k, v, o, p, grid, s);
-    case daism::kPc3:
-      return launch<daism::kPc3, uint16_t>(q, k, v, o, p, grid, s);
-    case daism::kPc2Tr:
-      return launch<daism::kPc2Tr, uint16_t>(q, k, v, o, p, grid, s);
-    case daism::kPc3Tr:
-      return launch<daism::kPc3Tr, uint16_t>(q, k, v, o, p, grid, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case daism::kFla: product_check<daism::kFla><<<grid, block, 0, s>>>(bad); break;
+    case daism::kHla: product_check<daism::kHla><<<grid, block, 0, s>>>(bad); break;
+    case daism::kPc2: product_check<daism::kPc2><<<grid, block, 0, s>>>(bad); break;
+    case daism::kPc3: product_check<daism::kPc3><<<grid, block, 0, s>>>(bad); break;
+    case daism::kPc2Tr: product_check<daism::kPc2Tr><<<grid, block, 0, s>>>(bad); break;
+    case daism::kPc3Tr: product_check<daism::kPc3Tr><<<grid, block, 0, s>>>(bad); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
 }

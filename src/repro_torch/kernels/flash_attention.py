@@ -36,8 +36,8 @@ from .daism_matmul import VARIANT_IDS
 
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
-KERNEL_BLOCK_Q = 64  # the CUDA kernels' query tile (csrc/flash_attention.cu kBQ)
-KERNEL_BLOCK_K = 128  # the CUDA kernel's KV tile (csrc/flash_attention.cu kBK)
+KERNEL_BLOCK_Q = 64  # flash_fwd_tc's query tile (csrc/flash_attention.cu kBQ)
+KERNEL_BLOCK_K = 128  # the CUDA kernels' KV tile (csrc/flash_attention.cu kBK)
 KERNEL_MAX_D = 256  # the largest head dim the CUDA kernels take (kMaxD)
 # flash_fwd_tc (bf16 exact): the head dim in 16-column MMA steps, KD of them
 # (TcTile kDp = 16 KD, zero-padded); launch_tc rounds KD above
@@ -47,6 +47,18 @@ TC_HEAD_STEP = 16
 TC_MAX_REG_Q_STEPS = 8
 TC_WIDE_STEPS = (12, 16)
 TC_BLOCK_K_QS = 64
+# flash_fwd_int (the approximate variants and f32 exact): 4 query rows a
+# warp (kIntRows), blocks of 8, 4 or 2 warps (query tiles of 32, 16, 8
+# rows), 16 warps an SM at every block size, the head dim padded to the
+# next of INT_HEAD_DIMS (int_head_dim)
+INT_ROWS_PER_WARP = 4
+INT_WARPS = (8, 4, 2)
+INT_RESIDENT_WARPS = 16
+INT_HEAD_DIMS = (16, 32, 64, 128, 192, 256)
+H100_SMS = 132
+# what a block spends on a KV tile beyond its rows' products (decoding the
+# tile's K and V fields once, its barriers), in query rows' worth of work
+INT_TILE_OVERHEAD_ROWS = 2
 _MAX_GRID_Y = 65535
 
 _NEG_INF = -1e30
@@ -60,11 +72,49 @@ def _bind():
     global _launch
     fn = load_library("flash_attention").flash_attention
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                       ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
     fn.restype = ctypes.c_int
     _launch = fn
     return fn
+
+
+def int_info(variant, dtype, d: int, warps: int) -> dict:
+    """What ``flash_fwd_int`` for (``variant``, ``dtype``, head dim ``d``)
+    compiled to at blocks of ``warps`` warps, read from the card:
+    ``blocks_per_sm`` (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+    ``registers`` a thread, ``local_bytes`` a thread (spills) and
+    ``smem_bytes`` a block. Needs the card (builds the library)."""
+    dtype = torch_dtype(dtype)
+    v = _variant(variant, dtype)
+    fn = load_library("flash_attention").flash_attention_int_info
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    err = fn(VARIANT_IDS[v or Variant.EXACT], int(dtype == torch.float32),
+             d, warps, out)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_int_info failed: CUDA error {err}")
+    return dict(blocks_per_sm=out[0], registers=out[1], local_bytes=out[2],
+                smem_bytes=out[3])
+
+
+def lean_product_mismatches(variant, device) -> int:
+    """The bf16 operand pairs (of all 2**32) on which the integer kernels'
+    multiply-accumulate (``approx_mac_lean``) and ``acc + approx_product``
+    differ, at acc = +0 or 1.5, for an approximate ``variant``, counted on
+    the card ``device``."""
+    variant = Variant(variant)
+    bad = torch.zeros(1, dtype=torch.int64, device=device)
+    fn = load_library("flash_attention").approx_product_check
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        err = fn(VARIANT_IDS[variant], bad.data_ptr(),
+                 torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"approx_product_check failed: CUDA error {err}")
+    return int(bad.item())
 
 
 def _variant(variant, dtype) -> Optional[Variant]:
@@ -83,18 +133,51 @@ def _variant(variant, dtype) -> Optional[Variant]:
     return variant
 
 
-def kernel_tiles(d: int, dtype, variant=None) -> tuple:
+def int_head_dim(d: int) -> int:
+    """The padded head dim ``flash_fwd_int`` computes at (``int_head_dim``
+    in ``csrc/flash_attention.cu``): its p.v lane tiles cover 16, 32, 64,
+    128, 192 or 256 columns, the padded ones zeros."""
+    return next(w for w in INT_HEAD_DIMS if d <= w)
+
+
+def int_plan(bh: int, sq: int) -> int:
+    """Warps a block of ``flash_fwd_int`` for B x H = ``bh`` heads of ``sq``
+    query rows: the one rule that picks its launch shape (query tile 4 x
+    warps rows, 32 x warps threads; the head dim is always streamed in
+    chunks). Every block size keeps 16 warps an SM, so an SM's share of the
+    grid is ceil(blocks / 132) blocks, each costing its KV tiles times its
+    rows plus :data:`INT_TILE_OVERHEAD_ROWS`: the rule takes the size whose
+    largest share ends soonest (the larger on a tie), so a short grid
+    (Whisper's 448-row cross attention, 20 heads) takes smaller tiles that
+    fill the 132 SMs and a long one larger tiles that decode each K/V tile
+    for more rows. Causal grids run their longest tiles first, which keeps
+    their tail within the same count."""
+    best = None
+    for warps in INT_WARPS:
+        rows = INT_ROWS_PER_WARP * warps
+        blocks = bh * -(-sq // rows)
+        cost = -(-blocks // H100_SMS) * (rows + INT_TILE_OVERHEAD_ROWS)
+        if best is None or cost < best[0]:
+            best = (cost, warps)
+    return best[1]
+
+
+def kernel_tiles(d: int, dtype, variant=None, *, bh: int = 1,
+                 sq: int = 1) -> tuple:
     """(query tile, key tile, head dim as computed) of the CUDA kernel that
     a call on ``dtype`` inputs with ``variant`` launches: ``flash_fwd_tc``
     for bf16 exact (the head dim zero-padded to its MMA steps,
-    ``csrc/flash_attention.cu`` ``launch_tc``), else ``flash_fwd`` (the head
-    dim whole). Raises as the kernel's entry point does: for a head dim
-    past :data:`KERNEL_MAX_D` or an approximate variant off bf16."""
+    ``csrc/flash_attention.cu`` ``launch_tc``), else ``flash_fwd_int``,
+    whose query tile :func:`int_plan` picks for ``bh`` = B x H heads of
+    ``sq`` query rows and whose head dim is :func:`int_head_dim`'s. Raises
+    as the kernel's entry point does: for a head dim past
+    :data:`KERNEL_MAX_D` or an approximate variant off bf16."""
     if not 1 <= d <= KERNEL_MAX_D:
         raise ValueError(f"head dim {d} outside the kernel's 1..{KERNEL_MAX_D}")
     dtype = torch_dtype(dtype)
     if _variant(variant, dtype) is not None or dtype != torch.bfloat16:
-        return KERNEL_BLOCK_Q, KERNEL_BLOCK_K, d
+        return (INT_ROWS_PER_WARP * int_plan(bh, sq), KERNEL_BLOCK_K,
+                int_head_dim(d))
     steps = -(-d // TC_HEAD_STEP)
     if steps > TC_MAX_REG_Q_STEPS:
         steps = next(s for s in TC_WIDE_STEPS if steps <= s)
@@ -210,10 +293,14 @@ def flash_attention_bhsd_plain(q, k, v, *, causal: bool = True,
 
 
 def _launch_kernel(q, k, v, *, b, h, kh, sq, skv, d, kv_len, causal, variant,
-                   q_st, k_st, v_st, out, o_st) -> torch.Tensor:
+                   q_st, k_st, v_st, out, o_st, warps=None) -> torch.Tensor:
     """Check what the kernel takes and launch it once. ``*_st`` are the
-    (batch, sequence, head) element strides of each tensor."""
+    (batch, sequence, head) element strides of each tensor; ``warps``
+    forces ``flash_fwd_int``'s block size (2, 4 or 8; default
+    :func:`int_plan`'s)."""
     global launches
+    if warps is not None and warps not in INT_WARPS:
+        raise ValueError(f"warps {warps} not one of {INT_WARPS}")
     variant = _variant(variant, q.dtype)
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"the flash-attention kernel needs q, k, v on one CUDA "
@@ -234,12 +321,14 @@ def _launch_kernel(q, k, v, *, b, h, kh, sq, skv, d, kv_len, causal, variant,
         raise ValueError(f"kv_len {kv_len} outside 1..{skv}")
     if sq == 0:
         return out
+    if warps is None:
+        warps = int_plan(b * h, sq)
     strides = (ctypes.c_longlong * 12)(*q_st, *k_st, *v_st, *o_st)
     fn = _launch or _bind()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, h, kh, sq, skv, d, kv_len, int(causal), _scale(d),
             VARIANT_IDS[variant or Variant.EXACT],
-            int(q.dtype == torch.float32), strides,
+            int(q.dtype == torch.float32), warps, strides,
             torch.cuda.current_stream(q.device).cuda_stream)
     if q.device.index == torch.cuda.current_device():
         err = fn(*args)

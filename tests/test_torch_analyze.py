@@ -266,19 +266,23 @@ def test_attention_checker_flags_ragged_flash_tiles():
 
 
 def test_attention_checker_flags_padded_head_dim():
-    # D = 40: the tensor-core kernel (bf16 exact) pads it to 48; the
-    # integer kernel (an approximate variant) does not
+    # D = 40: the tensor-core kernel (bf16 exact) pads it to 48, the
+    # integer kernel (an approximate variant) to its 64-column lane tiles
     cfg = dict(head_dim=40, seq=128)
     (f,) = T.check_attention(_graph("*/attn/kernel=exact:flash,*=exact",
                                     **cfg))
     assert f.code == "TIL004" and "head_dim: 40 -> 48" in f.message
     assert f"steps of {fa.TC_HEAD_STEP}" in f.message
-    assert not T.check_attention(_graph("*/attn/kernel=pc3_tr:flash,*=exact",
-                                        **cfg))
+    (f,) = T.check_attention(_graph("*/attn/kernel=pc3_tr:flash,*=exact",
+                                    **cfg))
+    assert f.code == "TIL004" and "head_dim: 40 -> 64" in f.message
+    assert "padded to 64" in f.message and "sq" not in f.message
     # D = 192 on the tensor cores: 64-key tiles, so Skv = 64 is whole
     assert fa.kernel_tiles(192, "bfloat16") == (64, fa.TC_BLOCK_K_QS, 192)
-    assert fa.kernel_tiles(192, "bfloat16", Variant.PC3_TR) == (64, 128, 192)
-    assert fa.kernel_tiles(40, "float32") == (64, 128, 40)
+    # the integer kernel: int_plan's query tile for the heads and rows
+    assert fa.kernel_tiles(192, "bfloat16", Variant.PC3_TR, bh=96,
+                           sq=2048) == (32, 128, 192)
+    assert fa.kernel_tiles(40, "float32", bh=20, sq=448) == (16, 128, 64)
 
 
 def test_attention_checker_flags_non_bf16_flash_variant():
