@@ -56,6 +56,7 @@ from repro_torch.core.config import torch_dtype
 from repro_torch.parallel.sharding import (current_sharder, shard_index,
                                            shard_tensor, spec_axes)
 from repro_torch.policy import OpKind, attention_kernel, policy_dot, resolve_site
+from repro_torch.runtime import trace
 
 from .common import ArchConfig
 from .module import Ctx
@@ -549,25 +550,27 @@ def embed(ctx: Ctx, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     vocab's mesh axes is the whole embedding, bit for bit. An FSDP ``embed``
     dim (train rules) is gathered into the table first; otherwise (serve
     rules) the looked-up columns are gathered."""
-    e = ctx.param("embedding")
-    sharder = current_sharder()
-    if sharder is None:
-        return e[tokens]
-    v_entry, d_entry = (sharder.spec(("vocab", "embed"),
-                                     (cfg.vocab, cfg.d_model))
-                        + (None, None))[:2]
-    e = fsdp_whole(e, ("vocab", "embed"), (cfg.vocab, cfg.d_model))
-    if sharder.is_fsdp(d_entry):
-        d_entry = None
-    if v_entry is not None:
-        rows = e.shape[0]
-        local = tokens - shard_index(sharder, v_entry, sharder.coords()) * rows
-        mine = (local >= 0) & (local < rows)
-        x = torch.where(mine[..., None], e[local.clamp(0, rows - 1)], 0)
-        x = sharder.all_reduce(x, v_entry, downstream="same")
-    else:
-        x = e[tokens]
-    return sharder.all_gather(x, d_entry, -1, downstream="same")
+    with trace.span("model.embed", annotate=False):
+        e = ctx.param("embedding")
+        sharder = current_sharder()
+        if sharder is None:
+            return e[tokens]
+        v_entry, d_entry = (sharder.spec(("vocab", "embed"),
+                                         (cfg.vocab, cfg.d_model))
+                            + (None, None))[:2]
+        e = fsdp_whole(e, ("vocab", "embed"), (cfg.vocab, cfg.d_model))
+        if sharder.is_fsdp(d_entry):
+            d_entry = None
+        if v_entry is not None:
+            rows = e.shape[0]
+            local = tokens - shard_index(sharder, v_entry,
+                                         sharder.coords()) * rows
+            mine = (local >= 0) & (local < rows)
+            x = torch.where(mine[..., None], e[local.clamp(0, rows - 1)], 0)
+            x = sharder.all_reduce(x, v_entry, downstream="same")
+        else:
+            x = e[tokens]
+        return sharder.all_gather(x, d_entry, -1, downstream="same")
 
 
 def tied_lm_head(e: torch.Tensor) -> torch.Tensor:
@@ -595,13 +598,14 @@ def tied_lm_head(e: torch.Tensor) -> torch.Tensor:
 def unembed(ctx: Ctx, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """The logits; vocab-parallel under a sharder, all-gathered, so every
     rank holds all of them."""
-    w = (tied_lm_head(ctx.param("embedding")) if cfg.tie_embeddings
-         else ctx.param("lm_head"))
-    logits, v_entry = sharded_dot(cfg, x, w, name="lm_head",
-                                  kind=OpKind.LM_HEAD,
-                                  axes=("embed", "vocab"),
-                                  shape=(cfg.d_model, cfg.vocab))
-    if v_entry is None:
-        return logits
-    return current_sharder().all_gather(logits, v_entry, -1,
-                                        downstream="same")
+    with trace.span("model.lm_head"):
+        w = (tied_lm_head(ctx.param("embedding")) if cfg.tie_embeddings
+             else ctx.param("lm_head"))
+        logits, v_entry = sharded_dot(cfg, x, w, name="lm_head",
+                                      kind=OpKind.LM_HEAD,
+                                      axes=("embed", "vocab"),
+                                      shape=(cfg.d_model, cfg.vocab))
+        if v_entry is None:
+            return logits
+        return current_sharder().all_gather(logits, v_entry, -1,
+                                            downstream="same")

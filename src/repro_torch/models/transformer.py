@@ -28,6 +28,7 @@ from repro_torch.core.config import torch_dtype
 from repro_torch.parallel.sharding import current_sharder, use_sharder
 from repro_torch.policy import OpKind, plan_segments, site_scope
 from repro_torch.policy.sites import scope_snapshot, use_scope
+from repro_torch.runtime import trace
 from repro_torch.runtime.device import resolve_device
 
 from .common import ArchConfig
@@ -87,13 +88,13 @@ def decoder_block(ctx: Ctx, cfg: ArchConfig, x, *, positions, cache=None,
     """Pre-norm self-attention + FFN (dense or MoE). Returns (x, cache,
     aux): the MoE load-balance loss, 0.0 for a dense FFN."""
     use_bias = cfg.norm == "layernorm"  # starcoder2/whisper-style
-    with ctx.scope("attn"):
+    with ctx.scope("attn"), trace.span("model.attn", annotate=False):
         h, new_cache = self_attention(
             ctx, norm(ctx, "ln1", x, cfg), cfg, positions=positions,
             cache=cache, causal=causal, use_bias=use_bias)
     x = x + h
     aux = 0.0
-    with ctx.scope("ffn"):
+    with ctx.scope("ffn"), trace.span("model.ffn", annotate=False):
         y = norm(ctx, "ln2", x, cfg)
         if cfg.n_experts:
             h, aux = moe_ffn(ctx, y, cfg)
@@ -104,10 +105,10 @@ def decoder_block(ctx: Ctx, cfg: ArchConfig, x, *, positions, cache=None,
 
 def cross_block(ctx: Ctx, cfg: ArchConfig, x, kv_src):
     """Cross-attention block (VLM / whisper decoder insert)."""
-    with ctx.scope("xattn"):
+    with ctx.scope("xattn"), trace.span("model.xattn", annotate=False):
         h = cross_attention(ctx, norm(ctx, "ln1", x, cfg), kv_src, cfg)
     x = x + h
-    with ctx.scope("ffn"):
+    with ctx.scope("ffn"), trace.span("model.ffn", annotate=False):
         x = x + mlp(ctx, norm(ctx, "ln2", x, cfg), cfg)
     return x
 
@@ -576,12 +577,12 @@ class DecoderLM:
 
 def encoder_block(ctx: Ctx, cfg: ArchConfig, x, *, positions, cache=None):
     """Bidirectional self-attention + MLP, both with biases."""
-    with ctx.scope("attn"):
+    with ctx.scope("attn"), trace.span("model.attn", annotate=False):
         h, _ = self_attention(ctx, norm(ctx, "ln1", x, cfg), cfg,
                               positions=positions, causal=False,
                               use_bias=True)
     x = x + h
-    with ctx.scope("ffn"):
+    with ctx.scope("ffn"), trace.span("model.ffn", annotate=False):
         x = x + mlp(ctx, norm(ctx, "ln2", x, cfg), cfg, use_bias=True)
     return x, None, 0.0
 
@@ -590,16 +591,16 @@ def encdec_decoder_block(ctx: Ctx, cfg: ArchConfig, x, *, positions,
                          enc_kv, cache=None):
     """Causal self-attention (slot-cached in ``decode_step``), cross
     attention to the encoder states, MLP; every GEMM with a bias."""
-    with ctx.scope("attn"):
+    with ctx.scope("attn"), trace.span("model.attn", annotate=False):
         h, new_cache = self_attention(ctx, norm(ctx, "ln1", x, cfg), cfg,
                                       positions=positions, cache=cache,
                                       causal=True, use_bias=True)
     x = x + h
-    with ctx.scope("xattn"):
+    with ctx.scope("xattn"), trace.span("model.xattn", annotate=False):
         h = cross_attention(ctx, norm(ctx, "lnx", x, cfg), enc_kv, cfg,
                             use_bias=True)
     x = x + h
-    with ctx.scope("ffn"):
+    with ctx.scope("ffn"), trace.span("model.ffn", annotate=False):
         x = x + mlp(ctx, norm(ctx, "ln2", x, cfg), cfg, use_bias=True)
     return x, new_cache, 0.0
 

@@ -80,6 +80,7 @@ import torch
 
 from repro_torch.models.module import flatten
 from repro_torch.policy import ApproxPolicy, parse_policy
+from repro_torch.runtime import trace
 from repro_torch.runtime.device import resolve_device
 from repro_torch.runtime.watchdog import StepWatchdog
 
@@ -651,6 +652,7 @@ class ServeEngine:
                 continue
             state.next_pos = cached_len
             state.cached_len = cached_len
+            state.admit_time = time.perf_counter()
             self._event("admit", state, state.slot,
                         joined_running=state.joined_running_batch,
                         blocks=len(table),
@@ -699,11 +701,12 @@ class ServeEngine:
         table = np.full((self.cfg.max_blocks_per_seq,), SENTINEL, np.int32)
         table[:n_blocks] = group.tables[slot, :n_blocks]
         cells = self.kv["k"].shape[1] - 1
-        idx = self._swap_idx(table).clamp(max=cells - 1)
-        with torch.inference_mode():
-            state.swap = {"k": self.kv["k"][:, idx].cpu(),
-                          "v": self.kv["v"][:, idx].cpu(),
-                          "blocks": n_blocks}
+        with trace.span("engine.swap", blocks=n_blocks):
+            idx = self._swap_idx(table).clamp(max=cells - 1)
+            with torch.inference_mode():
+                state.swap = {"k": self.kv["k"][:, idx].cpu(),
+                              "v": self.kv["v"][:, idx].cpu(),
+                              "blocks": n_blocks}
         self._swapped_blocks += n_blocks
         self.pool.free(state.request_id)
         group.sched.requeue(slot)
@@ -724,10 +727,12 @@ class ServeEngine:
         # Unmapped entries land in the sink cell, never in a real page.
         t = np.full((self.cfg.max_blocks_per_seq,), SENTINEL, np.int32)
         t[:n_old] = table[:n_old]
-        idx = self._swap_idx(t)
-        with torch.inference_mode():
-            for name in ("k", "v"):
-                self.kv[name].index_copy_(1, idx, swap[name].to(self.device))
+        with trace.span("engine.swap", blocks=n_old):
+            idx = self._swap_idx(t)
+            with torch.inference_mode():
+                for name in ("k", "v"):
+                    self.kv[name].index_copy_(1, idx,
+                                              swap[name].to(self.device))
         self.pool.advance(state.request_id, state.seq_len)
         self.pool.commit_prefix(state.request_id)
         group.last_tok[state.slot] = state.output[-1]
@@ -802,16 +807,26 @@ class ServeEngine:
         keep.append(t)
         return t.to(self.device, non_blocking=True)
 
+    def _launch_span(self, group: _PolicyGroup, kind: str, rows,
+                     positions: int, tokens: int):
+        """The ``engine.launch`` span of one group step; its start is the
+        step clock's (``_fetch``)."""
+        return trace.timed(
+            "engine.launch", counters=trace.kernel_launches, kind=kind,
+            group=group.label,
+            request_ids=[st.request_id for st in rows.values()],
+            positions=positions, tokens=tokens)
+
     def _launch(self, group: _PolicyGroup, tokens, tables, pos, last_idx):
         keep: list = []
         with torch.inference_mode(), self._scope():
-            tok = group_step(
-                group.model, self.params, self.kv,
-                self._to_device(tokens, keep).long(),
-                self._to_device(tables, keep),
-                self._to_device(pos, keep),
-                self._to_device(last_idx, keep),
-                block_size=self.cfg.block_size)
+            with trace.span("engine.stage"):
+                staged = (self._to_device(tokens, keep).long(),
+                          self._to_device(tables, keep),
+                          self._to_device(pos, keep),
+                          self._to_device(last_idx, keep))
+            tok = group_step(group.model, self.params, self.kv, *staged,
+                             block_size=self.cfg.block_size)
         group.steps += 1
         return tok, keep
 
@@ -831,6 +846,7 @@ class ServeEngine:
         pos = np.zeros((r,), np.int32)
         last_idx = np.zeros((r,), np.int32)
         finishing: Set[int] = set()
+        real = 0
         for slot, state in rows.items():
             prompt = state.request.prompt
             piece = prompt[state.next_pos:state.next_pos + chunk]
@@ -841,10 +857,13 @@ class ServeEngine:
             if state.next_pos + len(piece) == len(prompt):
                 finishing.add(slot)
             state.next_pos += len(piece)
-        t0 = time.perf_counter()
-        tok, keep = self._launch(group, tokens, tables, pos, last_idx)
+            real += len(piece)
+        with self._launch_span(group, "prefill", rows, tokens.size,
+                               real) as sp:
+            tok, keep = self._launch(group, tokens, tables, pos, last_idx)
         return {"group": group, "kind": "prefill", "rows": rows,
-                "finishing": finishing, "tok": tok, "keep": keep, "t0": t0}
+                "finishing": finishing, "tok": tok, "keep": keep,
+                "t0": sp.start_ns}
 
     def _decode_inputs(self, group: _PolicyGroup, stalled: Set[int]):
         """(rows, tables, pos) of ``group``'s generating rows that are not
@@ -865,12 +884,14 @@ class ServeEngine:
         rows, tables, pos = self._decode_inputs(group, stalled)
         if not rows:
             return None
-        t0 = time.perf_counter()
-        tok, keep = self._launch(group, group.last_tok[:, None].copy(),
-                                 tables, pos,
-                                 np.zeros((self.cfg.num_slots,), np.int32))
+        with self._launch_span(group, "decode", rows, self.cfg.num_slots,
+                               len(rows)) as sp:
+            tok, keep = self._launch(group, group.last_tok[:, None].copy(),
+                                     tables, pos,
+                                     np.zeros((self.cfg.num_slots,),
+                                              np.int32))
         return {"group": group, "kind": "decode", "rows": rows,
-                "tok": tok, "keep": keep, "t0": t0}
+                "tok": tok, "keep": keep, "t0": sp.start_ns}
 
     def _launch_spec(self, group: _PolicyGroup,
                      stalled: Set[int]) -> Optional[dict]:
@@ -896,13 +917,16 @@ class ServeEngine:
         for slot, state in rows.items():
             cov = int((group.tables[slot] != SENTINEL).sum()) * cfg.block_size
             caps[slot] = max(0, cov - 1 - state.seq_len)
-        t0 = time.perf_counter()
         keep: list = []
-        with torch.inference_mode(), self._scope():
-            jt = self._to_device(tables, keep)
-            jp = self._to_device(pos, keep)
-            zero = torch.zeros_like(jp)
-            toks = [self._to_device(group.last_tok, keep).long()]
+        window = cfg.spec_k + 1
+        with self._launch_span(group, "spec", rows, cfg.num_slots * window,
+                               len(rows) * window) as sp, \
+                torch.inference_mode(), self._scope():
+            with trace.span("engine.stage"):
+                jt = self._to_device(tables, keep)
+                jp = self._to_device(pos, keep)
+                zero = torch.zeros_like(jp)
+                toks = [self._to_device(group.last_tok, keep).long()]
             for j in range(cfg.spec_k):
                 toks.append(group_step(
                     self._draft_model, self.params, self.kv,
@@ -915,21 +939,22 @@ class ServeEngine:
         group.draft_steps += cfg.spec_k
         group.steps += 1
         return {"group": group, "kind": "spec", "rows": rows, "tok": greedy,
-                "n_acc": n_acc, "caps": caps, "keep": keep, "t0": t0}
+                "n_acc": n_acc, "caps": caps, "keep": keep,
+                "t0": sp.start_ns}
 
     def _fetch(self, rec: dict):
         """Wait for a launched step's tokens: the only host wait in the
-        loop; the waiting time is the tick's idle accounting."""
+        loop; the waiting time is the tick's idle accounting. The step time
+        runs from the ``engine.launch`` span's start to this span's end."""
         if "np_tok" in rec:
             return
-        t0 = time.perf_counter()
-        rec["np_tok"] = rec.pop("tok").cpu().numpy()
-        if "n_acc" in rec:
-            rec["np_acc"] = rec.pop("n_acc").cpu().numpy()
-        rec.pop("keep")
-        t1 = time.perf_counter()
-        self._idle_s += t1 - t0
-        rec["dt"] = t1 - rec["t0"]
+        with trace.timed("engine.fetch") as sp:
+            rec["np_tok"] = rec.pop("tok").cpu().numpy()
+            if "n_acc" in rec:
+                rec["np_acc"] = rec.pop("n_acc").cpu().numpy()
+            rec.pop("keep")
+        self._idle_s += (sp.end_ns - sp.start_ns) / 1e9
+        rec["dt"] = (sp.end_ns - rec["t0"]) / 1e9
 
     def _apply(self, rec: dict):
         """Fold a fetched step's tokens back into scheduler/pool state."""
@@ -1056,19 +1081,25 @@ class ServeEngine:
         Returns False when fully drained."""
         if not any(g.sched.has_work for g in self.groups.values()):
             return False
+        with trace.span("engine.tick", step=self.step):
+            return self._phases()
+
+    def _phases(self) -> bool:
+        """``tick``'s phases, each under its span."""
         stalled: Set[int] = set()
-        for group in self.groups.values():
-            # speculative rows want spec_k extra positions of coverage, but
-            # only in preempt mode (on-demand growth + truncate rollback);
-            # a whole-lifetime reservation already covers every position
-            # acceptance can reach
-            ahead = (self.cfg.spec_k
-                     if group.spec_on and self.cfg.preempt else 0)
-            for _slot, state in list(group.decode_rows.items()):
-                if state.request_id not in self.pool:
-                    continue  # preempted as a victim earlier this phase
-                if not self._ensure_blocks(group, state, ahead=ahead):
-                    stalled.add(state.request_id)
+        with trace.span("engine.blocks"):
+            for group in self.groups.values():
+                # speculative rows want spec_k extra positions of coverage,
+                # but only in preempt mode (on-demand growth + truncate
+                # rollback); a whole-lifetime reservation already covers
+                # every position acceptance can reach
+                ahead = (self.cfg.spec_k
+                         if group.spec_on and self.cfg.preempt else 0)
+                for _slot, state in list(group.decode_rows.items()):
+                    if state.request_id not in self.pool:
+                        continue  # preempted as a victim earlier this phase
+                    if not self._ensure_blocks(group, state, ahead=ahead):
+                        stalled.add(state.request_id)
         inflight = []
         for phase in ("prefill", "decode"):
             for group in self.groups.values():
@@ -1082,15 +1113,18 @@ class ServeEngine:
                     inflight.append(rec)
                     if not self.cfg.overlap:
                         self._fetch(rec)
-        self._stamp_arrivals(time.perf_counter())
-        admitted = self._admit_all(allow_preempt=False)
-        self._sample_util()
+        with trace.span("engine.admit"):
+            self._stamp_arrivals(time.perf_counter())
+            admitted = self._admit_all(allow_preempt=False)
+            self._sample_util()
         for rec in inflight:
             # fetch+apply interleaved: an earlier record's host bookkeeping
             # runs while later records are still computing on the card
             self._fetch(rec)
-            self._apply(rec)
-        admitted |= self._admit_all(allow_preempt=self.cfg.preempt)
+            with trace.span("engine.apply"):
+                self._apply(rec)
+        with trace.span("engine.admit"):
+            admitted |= self._admit_all(allow_preempt=self.cfg.preempt)
         self._peak_active = max(
             self._peak_active,
             sum(len(g.sched.active) for g in self.groups.values()))

@@ -72,8 +72,11 @@ class RequestState:
     # the request became admissible — equal to submit_time for immediate
     # arrivals, stamped later for arrival_step-gated trace replays, so
     # TTFT/latency never include simulated pre-arrival queueing.
+    # admit_time is the first admission (a resume after a swap keeps it):
+    # queue wait is admit - arrival, prefill first_token - admit.
     submit_time: float = 0.0
     arrival_time: float = 0.0
+    admit_time: float = 0.0
     first_token_time: float = 0.0
     finish_time: float = 0.0
     prefill_s: float = 0.0  # wall time of the prefill chunks it rode in
