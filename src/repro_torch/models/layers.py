@@ -46,6 +46,7 @@ between the layers are whole over ``model`` on every rank.
 from __future__ import annotations
 
 import functools
+import weakref
 from typing import Optional, Tuple
 
 import numpy as np
@@ -56,6 +57,7 @@ from repro_torch.core.config import torch_dtype
 from repro_torch.parallel.sharding import (current_sharder, shard_index,
                                            shard_tensor, spec_axes)
 from repro_torch.policy import OpKind, attention_kernel, policy_dot, resolve_site
+from repro_torch.policy.sites import scope_snapshot
 from repro_torch.runtime import trace
 
 from .common import ArchConfig
@@ -458,21 +460,97 @@ def _slot_kv_attend(q, k, v, cache, positions, cfg: ArchConfig, *, causal):
     return out, new_cache
 
 
+def _proj(ctx: Ctx, name: str, src: torch.Tensor, cfg: ArchConfig,
+          use_bias: bool, local: bool) -> torch.Tensor:
+    """``src`` through ``wq``/``wk``/``wv`` as (B, S, H, HD): this rank's
+    heads where they are head-local (``local``), else every head (module
+    doc)."""
+    d = cfg.d_model
+    n = cfg.q_dim if name == "wq" else cfg.kv_dim
+    t = dense(ctx, name, src, cfg, use_bias=use_bias, axes=ATTN_AXES[name],
+              shape=(d, n))
+    if not local:
+        t = whole_cols(t, ATTN_AXES[name], (d, n))
+    return t.reshape(*src.shape[:2], -1, cfg.head_dim)
+
+
 def _qkv(ctx: Ctx, x: torch.Tensor, kv_src: torch.Tensor, cfg: ArchConfig,
          use_bias: bool):
-    """q from ``x`` and k, v from ``kv_src``, (B, S, H, HD) each: this
-    rank's heads where they are head-local, else every head (module doc)."""
-    hd, d = cfg.head_dim, cfg.d_model
+    """q from ``x`` and k, v from ``kv_src``, (B, S, H, HD) each."""
     local = heads_local(cfg)
-    out = []
-    for name, src, n in (("wq", x, cfg.q_dim), ("wk", kv_src, cfg.kv_dim),
-                         ("wv", kv_src, cfg.kv_dim)):
-        t = dense(ctx, name, src, cfg, use_bias=use_bias,
-                  axes=ATTN_AXES[name], shape=(d, n))
-        if not local:
-            t = whole_cols(t, ATTN_AXES[name], (d, n))
-        out.append(t.reshape(*src.shape[:2], -1, hd))
-    return out
+    return [_proj(ctx, name, src, cfg, use_bias, local)
+            for name, src in (("wq", x), ("wk", kv_src), ("wv", kv_src))]
+
+
+# decode steps' cross-attention K/V: reused from the encoder states' tensor
+# (kept), or projected and kept there (taken); see :func:`kept_cross_kv`
+cross_kv_kept = 0
+cross_kv_taken = 0
+
+
+def cross_kv_counts():
+    """The counts of :func:`kept_cross_kv`, for ``model.xattn``'s span."""
+    return {"cross_kv.kept": cross_kv_kept, "cross_kv.taken": cross_kv_taken}
+
+
+def _stamp(t: torch.Tensor):
+    """What a kept entry read of ``t``: the tensor owning its storage
+    (weakly held, so a freed one whose memory is reused cannot match), its
+    place in it and its version counter."""
+    return (weakref.ref(t if t._base is None else t._base),
+            t.storage_offset(), t.shape, t.stride(), t._version)
+
+
+def _same(kept, now) -> bool:
+    """Whether stamp ``kept`` (of a kept entry) is stamp ``now``'s."""
+    owner = kept[0]()
+    return owner is not None and owner is now[0]() and kept[1:] == now[1:]
+
+
+def kept_cross_kv(ctx: Ctx, kv_src: torch.Tensor, cfg: ArchConfig,
+                  use_bias: bool, local: bool):
+    """Cross attention's k, v of ``kv_src`` (the encoder states), as
+    :func:`_qkv` computes them: the same ``dense`` calls at the same site
+    and M, so the same bits.
+
+    A decode step projects the same encoder states through the same
+    weights at every step (Whisper-large-v3: 64 GEMMs of (B x 1500, 1280,
+    1280), ~96% of a step's device time on the H100; PERF.md). So each
+    layer's pair is kept on ``kv_src`` itself, keyed by the site scope
+    and the ``wk`` row, and reused while ``kv_src`` (the same tensor, its
+    version counter unmoved), that layer's ``wk``/``wv`` and biases (the
+    same storage owners, places and versions), the config and the sharder
+    are those it was taken from. Writing the states in place or giving
+    another tensor, and writing or replacing a weight, take it anew.
+    While gradients flow, on ``meta``, and for inference tensors (no
+    version counter) nothing is kept."""
+    global cross_kv_kept, cross_kv_taken
+    names = ("wk", "wv") + (("wk_b", "wv_b") if use_bias else ())
+    weights = [ctx.param(n) for n in names]
+    if (torch.is_grad_enabled() or kv_src.requires_grad
+            or kv_src.device.type == "meta"
+            or any(torch.is_inference(t) for t in [kv_src, *weights])):
+        return [_proj(ctx, n, kv_src, cfg, use_bias, local)
+                for n in ("wk", "wv")]
+    held = getattr(kv_src, "_repro_cross_kv", None)
+    if held is None or held[0] != kv_src._version:
+        held = (kv_src._version, {})
+        kv_src._repro_cross_kv = held
+    entries = held[1]
+    key = (scope_snapshot(), weights[0].data_ptr())
+    sharder, stamps = current_sharder(), [_stamp(t) for t in weights]
+    found = entries.get(key)
+    if (found is not None and found[0] is cfg and found[1] is sharder
+            and all(map(_same, found[2], stamps))):
+        cross_kv_kept += 1
+        return found[3]
+    for k in [k for k, e in entries.items()
+              if any(s[0]() is None for s in e[2])]:
+        del entries[k]   # a weight it read is gone
+    kv = [_proj(ctx, n, kv_src, cfg, use_bias, local) for n in ("wk", "wv")]
+    entries[key] = (cfg, sharder, stamps, kv)
+    cross_kv_taken += 1
+    return kv
 
 
 def self_attention(ctx: Ctx, x: torch.Tensor, cfg: ArchConfig, *,
@@ -522,14 +600,21 @@ def self_attention(ctx: Ctx, x: torch.Tensor, cfg: ArchConfig, *,
 
 
 def cross_attention(ctx: Ctx, x: torch.Tensor, kv_src: torch.Tensor,
-                    cfg: ArchConfig, *, use_bias: bool = False) -> torch.Tensor:
+                    cfg: ArchConfig, *, use_bias: bool = False,
+                    keep_kv: bool = False) -> torch.Tensor:
     """Full (non-causal) cross attention against encoder/image states;
     under a sharder the heads are this rank's, as in
-    :func:`self_attention`."""
+    :func:`self_attention`. ``keep_kv`` (a slot-cache decode step) takes
+    k, v through :func:`kept_cross_kv`."""
     d = cfg.d_model
     b, s, _ = x.shape
     skv = kv_src.shape[1]
-    q, k, v = _qkv(ctx, x, kv_src, cfg, use_bias)
+    if keep_kv:
+        local = heads_local(cfg)
+        q = _proj(ctx, "wq", x, cfg, use_bias, local)
+        k, v = kept_cross_kv(ctx, kv_src, cfg, use_bias, local)
+    else:
+        q, k, v = _qkv(ctx, x, kv_src, cfg, use_bias)
     out = attend(q, k, v, torch.arange(s, device=x.device),
                  torch.arange(skv, device=x.device), causal=False,
                  chunk=skv,  # single chunk: small KV, uniform attn trips

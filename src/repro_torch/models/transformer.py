@@ -32,8 +32,8 @@ from repro_torch.runtime import trace
 from repro_torch.runtime.device import resolve_device
 
 from .common import ArchConfig
-from .layers import (ATTN_AXES, FFN_AXES, cross_attention, embed,
-                     mlp, norm, self_attention, unembed, whole_param)
+from .layers import (ATTN_AXES, FFN_AXES, cross_attention, cross_kv_counts,
+                     embed, mlp, norm, self_attention, unembed, whole_param)
 from .module import (Ctx, ParamSpec, axes_tree, init_params, layer_slice,
                      lecun_init, normal_init, ones_init, zeros_init)
 from .moe import EXPERT_IN_AXES, EXPERT_OUT_AXES, moe_ffn
@@ -105,7 +105,8 @@ def decoder_block(ctx: Ctx, cfg: ArchConfig, x, *, positions, cache=None,
 
 def cross_block(ctx: Ctx, cfg: ArchConfig, x, kv_src):
     """Cross-attention block (VLM / whisper decoder insert)."""
-    with ctx.scope("xattn"), trace.span("model.xattn", annotate=False):
+    with ctx.scope("xattn"), trace.span("model.xattn", annotate=False,
+                                        counters=cross_kv_counts):
         h = cross_attention(ctx, norm(ctx, "ln1", x, cfg), kv_src, cfg)
     x = x + h
     with ctx.scope("ffn"), trace.span("model.ffn", annotate=False):
@@ -590,15 +591,18 @@ def encoder_block(ctx: Ctx, cfg: ArchConfig, x, *, positions, cache=None):
 def encdec_decoder_block(ctx: Ctx, cfg: ArchConfig, x, *, positions,
                          enc_kv, cache=None):
     """Causal self-attention (slot-cached in ``decode_step``), cross
-    attention to the encoder states, MLP; every GEMM with a bias."""
+    attention to the encoder states (with a cache, their K/V kept on them
+    across steps: ``layers.kept_cross_kv``), MLP; every GEMM with a
+    bias."""
     with ctx.scope("attn"), trace.span("model.attn", annotate=False):
         h, new_cache = self_attention(ctx, norm(ctx, "ln1", x, cfg), cfg,
                                       positions=positions, cache=cache,
                                       causal=True, use_bias=True)
     x = x + h
-    with ctx.scope("xattn"), trace.span("model.xattn", annotate=False):
+    with ctx.scope("xattn"), trace.span("model.xattn", annotate=False,
+                                        counters=cross_kv_counts):
         h = cross_attention(ctx, norm(ctx, "lnx", x, cfg), enc_kv, cfg,
-                            use_bias=True)
+                            use_bias=True, keep_kv=cache is not None)
     x = x + h
     with ctx.scope("ffn"), trace.span("model.ffn", annotate=False):
         x = x + mlp(ctx, norm(ctx, "ln2", x, cfg), cfg, use_bias=True)
@@ -621,8 +625,11 @@ class EncDecLM:
     embeddings (plus the learned ``enc_pos``), a causal decoder with no
     positional embedding and cross attention in every layer.
 
-    ``decode_step`` recomputes the cross-attention K/V from ``cache['enc']``
-    at every step, as the reference does (it keeps no cross-KV cache).
+    ``decode_step`` projects each layer's cross-attention K/V from
+    ``cache['enc']`` once and keeps them on that tensor, reusing them at
+    later steps until the states or the weights change
+    (``layers.kept_cross_kv``); the reference recomputes them at every
+    step. The cache keeps the reference's four leaves.
     ``device`` is where :meth:`init` and :meth:`init_cache` allocate; it
     defaults to the card.
     """

@@ -24,7 +24,10 @@ Span names, matched by the benchmark's readers: ``engine.tick``,
 ``engine.admit``, ``engine.fetch``, ``engine.apply`` (``serve/engine.py``);
 ``model.lm_head`` (``models/layers.py``); records only: ``model.embed``,
 ``model.attn``, ``model.xattn``, ``model.ffn`` (``models/transformer.py``,
-``models/layers.py``).
+``models/layers.py``). Each ``model.xattn`` record carries the changes of
+``cross_kv.kept`` and ``cross_kv.taken`` over it: the cross-attention K/V
+reused from the encoder states, or projected and kept there, by a decode
+step (``models/layers.py::kept_cross_kv``).
 """
 from __future__ import annotations
 
