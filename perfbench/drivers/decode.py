@@ -6,11 +6,15 @@ token a row, encodes the clips with the program's ``encode`` into the
 cache's ``enc`` (work the traffic needs: a transcription's encoder pass),
 and runs one decode step. The window decodes the rows greedily, a step at
 a time (each synchronised), from position 0; when ``pos`` reaches the
-decoder's context it starts again at 0 over the same clips. ``gen_tok_s``
-is the rows times the steps over the window. The set-up's encoder pass
-and window step ``1 + seed % 3`` run under taps (``tap.py``); once the
-window has closed, the reference recomputes each of their stages from
-the program's own input to it (``stages.py``).
+decoder's context it starts again at 0 over the same clips. The window's
+tokens over its seconds are the host's rate (``decode.window_tok_s``, per
+layer). After the window, ``trace_steps`` steps from position 0 run under
+the profiler: ``transcribe_device_tok_s`` is their tokens over the
+seconds in which the device ran an operation, and with ``--trace 1`` the
+per-layer metrics read the same segment. The set-up's encoder pass and
+window step ``1 + seed % 3`` run under taps (``tap.py``); once the window
+has closed, the reference recomputes each of their stages from the
+program's own input to it (``stages.py``).
 """
 from __future__ import annotations
 
@@ -82,13 +86,16 @@ def run(cell, t_start: float, spans: harness.Spans, *, control=False,
         pos, cache = step(pos, cache, taps=steps == check_at)
         steps += 1
     window_s = time.perf_counter() - t0
-    layer = {"window": {"seconds": window_s, "flops": sum(
-        work.encdec_decode_flops(w, b, b * (i % ctx + 1))
-        for i in range(steps))}}
-    if cell.trace:
-        traced = {}
+    layer = {"window": {"seconds": window_s, "tokens": b * steps,
+                        "flops": sum(work.encdec_decode_flops(
+                            w, b, b * (i % ctx + 1)) for i in range(steps))}}
+    metrics = {"setup_s": setup_s}
+    if dev.type == "cuda":
+        # the same positions in every run: the device's time for a step
+        # does not hang on where the window stopped
+        cache["pos"] = torch.zeros_like(cache["pos"])
+        pos, n, traced = 0, wl["trace_steps"], {}
         t1 = time.perf_counter()
-        n = wl["trace_steps"]
         with harness.traced(cell, spans, traced):
             for _ in range(n):
                 pos, cache = step(pos, cache)
@@ -98,7 +105,12 @@ def run(cell, t_start: float, spans: harness.Spans, *, control=False,
             work.encdec_decode_gemms(w), b, approx)
             + work.gemm_bound_rows([work.lm_head_gemm(w)], b, approx))
         layer.update(trace=traced["trace"], traced={
-            "seconds": time.perf_counter() - t1, "gemm_bound_s": n * per_step})
+            "seconds": time.perf_counter() - t1, "gemm_bound_s": n * per_step,
+            "flops": sum(work.encdec_decode_flops(w, b, b * (i + 1))
+                         for i in range(n))})
+        if traced["trace"] is not None:
+            metrics["transcribe_device_tok_s"] = harness.rate(
+                b * n, traced["trace"].busy_s)
     memory = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     del art, cache
     if fault == "alter_answer":
@@ -109,8 +121,7 @@ def run(cell, t_start: float, spans: harness.Spans, *, control=False,
     checks = harness.Checks(wl["limits"])
     checks.add("stage_rel_rms", st.worst)
     checks.add("head_row_err", st.head)
-    return {"metrics": {"gen_tok_s": harness.rate(b * steps, window_s),
-                        "setup_s": setup_s},
+    return {"metrics": metrics,
             "attempted": steps, "failed": 0, "checks": checks,
             "layer": layer, "memory_peak_bytes": memory}
 

@@ -134,6 +134,33 @@ def rate(work: float, seconds: float) -> float:
 
 
 # ---------------------------------------------------------------------------
+# the window's steps, for standard error
+# ---------------------------------------------------------------------------
+
+def step_lines(spans: "Spans", least: int = 20) -> List[str]:
+    """For each span name with ``least`` or more spans (a window's steps or
+    ticks): its host times in ms, p10 / p50 / p90 / max, the first 20 apart,
+    and the median of each tenth of the spans in order."""
+    out = []
+    for name in dict.fromkeys(n for n, _, _ in spans.spans):
+        xs = [1e3 * s for s in spans.seconds(name)]
+        if len(xs) < least:
+            continue
+        tenths = [percentile(xs[len(xs) * i // 10:len(xs) * (i + 1) // 10],
+                             50) for i in range(10)]
+
+        def ms(v):
+            return " ".join(f"{x:.1f}" for x in v)
+
+        out.append(
+            f"steps {name} n={len(xs)} ms p10={percentile(xs, 10):.1f} "
+            f"p50={percentile(xs, 50):.1f} p90={percentile(xs, 90):.1f} "
+            f"max={max(xs):.1f} first20=[{ms(xs[:20])}] "
+            f"tenths=[{ms(tenths)}]")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # spans and the profiler
 # ---------------------------------------------------------------------------
 

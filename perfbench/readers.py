@@ -1,9 +1,10 @@
 """What the per-layer metric files read, from a run's ``layer`` record:
 
-* ``window``: the measured window's host seconds and its model FLOPs;
+* ``window``: the measured window's host seconds, its tokens where it
+  counts them, and its model FLOPs;
 * ``trace``: the profiled segment's :class:`harness.TraceSummary`;
 * ``traced``: that segment's bounds (``gemm_bound_s``, ``flash_bound_s``,
-  from ``work.py``);
+  from ``work.py``) and, where the driver counts them, its model FLOPs;
 * ``engine``: the serving engine's own timings of the window.
 
 Each returns None where its cell has nothing to read, never 0 for a share.
@@ -24,6 +25,24 @@ def mfu(layer: dict):
     if not win or win["seconds"] <= 0 or win["flops"] <= 0:
         return None
     return 100.0 * win["flops"] / (work.PEAK_FLOPS * win["seconds"])
+
+
+def busy_mfu(layer: dict):
+    """Model FLOPs of the traced segment over the bf16 peak for as long as
+    the device ran an operation in it."""
+    tr, traced = layer.get("trace"), layer.get("traced")
+    if tr is None or not traced or tr.busy_s <= 0 or traced.get(
+            "flops", 0.0) <= 0:
+        return None
+    return 100.0 * traced["flops"] / (work.PEAK_FLOPS * tr.busy_s)
+
+
+def window_rate(layer: dict):
+    """The window's tokens over its host seconds."""
+    win = layer.get("window")
+    if not win or win["seconds"] <= 0 or not win.get("tokens"):
+        return None
+    return win["tokens"] / win["seconds"]
 
 
 def roofline(layer: dict, bound: str, patterns):

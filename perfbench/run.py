@@ -10,9 +10,10 @@ its own first use into ``build/repro_torch/`` inside the checkout.
 ``--trace 0`` reports the cell's end-to-end metrics, ``--trace 1`` its
 per-layer ones (a profiled segment after the window). The last line of
 standard output is one JSON object; the last lines of standard error are
-the numbers that decided ``correct``, each beside its limit. Without as
-many CUDA cards as the cell asks for, or with the JAX package or JAX
-loaded at the end, the run prints no result and exits 2 or 3.
+the numbers that decided ``correct``, each beside its limit, after the
+spans and the window's step times (``steps``). Without as many CUDA
+cards as the cell asks for, or with the JAX package or JAX loaded at the
+end, the run prints no result and exits 2 or 3.
 """
 from __future__ import annotations
 
@@ -77,6 +78,8 @@ def main(argv=None) -> int:
     for name in dict.fromkeys(n for n, _, _ in spans.spans):
         xs = spans.seconds(name)
         print(f"span {name} n={len(xs)} s={sum(xs):.3f}", file=sys.stderr)
+    for text in harness.step_lines(spans):
+        print(text, file=sys.stderr)
     for text in out["checks"].lines():
         print(text, file=sys.stderr)
     print(json.dumps(line))

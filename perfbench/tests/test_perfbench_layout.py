@@ -117,3 +117,49 @@ def test_a_cell_added_as_files_runs_without_an_edit(tmp_path):
     out = tiny.run(c, bdir)
     assert out["checks"].correct
     assert out["metrics"]["score_tok_s"] > 0
+
+
+def test_transcription_has_its_own_rate_and_readers():
+    """``whisper-decode`` reports the device's rate, ``transcribe_device_tok_s``
+    (its tokens over the traced steps' busy seconds), as its end-to-end rate;
+    the host's rate of the window, the whole step's share of the peak, the
+    GEMM's roofline and the idle share are its per-layer readings, and each
+    moves that rate."""
+    e2e = {m["name"]: m for m in BENCH["end_to_end"]}
+    per = {m["name"]: m for m in BENCH["per_layer"]}
+    dev = e2e["transcribe_device_tok_s"]
+    assert dev["workloads"] == ["whisper-decode"]
+    assert (dev["source"], dev["better"]) == ("device_trace", "higher")
+    assert "transcribe_tok_s" not in e2e
+    assert e2e["gen_tok_s"]["workloads"] == ["sc2-serve"]
+    assert [m["name"] for m in harness.cell_metrics(
+        BENCH, "whisper-decode", "end_to_end")] == ["transcribe_device_tok_s",
+                                                    "setup_s"]
+    tr = harness.TraceSummary(window_s=1.0, busy_s=0.25,
+                              kernels={"daism_matmul_splitk_x": 0.1}, gaps={})
+    layer = {"window": {"seconds": 2.0, "tokens": 96, "flops": 1e12},
+             "trace": tr, "traced": {"gemm_bound_s": 0.004, "flops": 5e11}}
+    for base in ("gemm_roofline", "idle_share"):
+        m = per[f"{base}.decode"]
+        assert per[f"{base}.gen"]["workloads"] == ["sc2-serve"]
+        for key in ("unit", "better", "source", "layer"):
+            assert m[key] == per[f"{base}.gen"][key]
+        read = harness.metric_reader(f"{base}.decode")
+        assert read(layer) == harness.metric_reader(f"{base}.gen")(layer)
+    assert per["mfu.decode"]["source"] == "device_trace"
+    reads = {"mfu.decode": 100.0 * 5e11 / (989e12 * 0.25),
+             "gemm_roofline.decode": 4.0, "idle_share.decode": 75.0,
+             "decode.window_tok_s": 48.0}
+    for name, want in reads.items():
+        assert per[name]["moves"] == "transcribe_device_tok_s"
+        assert per[name]["workloads"] == ["whisper-decode"]
+        assert harness.metric_reader(name)(layer) == pytest.approx(want)
+    assert harness.metric_reader("mfu.decode")({"window": layer["window"]}) \
+        is None
+    assert harness.metric_reader("decode.window_tok_s")(
+        {"window": {"seconds": 2.0, "flops": 1e12}}) is None
+    assert per["xattn.kv_kept_share"]["moves"] == "transcribe_device_tok_s"
+    assert {m["name"] for m in harness.cell_metrics(
+        BENCH, "whisper-decode", "per_layer")} == {
+        "mfu.decode", "gemm_roofline.decode", "idle_share.decode",
+        "xattn.kv_kept_share", "decode.window_tok_s"}
